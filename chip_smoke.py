@@ -1,0 +1,461 @@
+#!/usr/bin/env python3
+"""Smoke test of spasm_tpu_torch, the PyTorch / CUDA port, on one NVIDIA card.
+
+    python3 chip_smoke.py            # every phase, as the acceptance run
+    python3 chip_smoke.py --phases build,k1,k2
+    python3 chip_smoke.py --phases build,e2e --profile build/profile
+
+Phases, one line each:
+
+  build    the card, its power limit, and the nvcc build of
+           spasm_tpu_torch/csrc/*.cu (with ptxas's register / spill lines)
+  k1       the mod-p matmul kernel against its plain version, both on the
+           card, bit for bit (4096^3 timed, unaligned shapes, every limb
+           count, k past one accumulator interval)
+  k2       the panel elimination kernel against its plain version, both on
+           the card, bit for bit in all six outputs (n = 1000 timed)
+  rref     dense.rref with the transform on the card (panel group 4)
+           against the same call on CPU tensors (group 1)
+  e2e      rank(A, device="cuda") at real size: the 8192^2 d=0.02 random
+           matrix (rank 8192), a planted-rank variant (rank 7168) and the
+           simplex boundary (22, 7) (rank 116280), with the launch counts
+  echelon  echelonize on the card against device="cpu": equal LU
+
+With ``--profile DIR``, e2e also traces one warm flagship rank with
+torch.profiler: kernel time by name, the device's busy share, and a Chrome
+trace in DIR.
+
+Every comparison is exact (GF(p) arithmetic: tolerance 0); a mismatch
+raises.  The last three lines are the kernels' JSON, the card's name and
+power limit, and the status JSON.
+Without a card, or without the spasm_tpu_torch package beside this script,
+it exits non-zero before printing any result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+PHASES = ("build", "k1", "k2", "rref", "e2e", "echelon")
+DEV = "cuda"
+
+# (n, k, m, p): K1 comparison shapes; the first is timed
+K1_CASES = [
+    (4096, 4096, 4096, 42013),        # timed
+    (130, 260, 140, 42013),           # unaligned
+    (130, 260, 140, 5),               # 1 limb
+    (130, 260, 140, 92681),           # 3 limbs
+    (130, 260, 140, 2147483629),      # 4 limbs
+    (130, 260, 140, 4294967291),      # 5 limbs
+    (1000, 1000, 8192, 42013),        # a block against the accumulated RREF
+    (40, 140_000, 48, 5),             # k past one 1-limb accumulator interval
+    (40, 30_000, 48, 4294967291),     # k past one 5-limb accumulator interval
+]
+# the flagship: SparseGFp.rand(field(42013), N, N, 0.02, default_rng(5)),
+# and its planted-rank variant keeping the first PLANTED_KEEP rows
+FLAGSHIP_N, FLAGSHIP_NNZ, PLANTED_KEEP = 8192, 1_343_173, 7168
+K2_PRIMES = (5, 42013, 92681, 2147483629, 4294967291)
+K2_ROWS = (1000, 4096, 8192)
+
+
+def emit(phase: str, **kw) -> None:
+    print(f"[{phase}] " + json.dumps(kw, default=str), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise RuntimeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip()
+
+
+def sync() -> None:
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean ms of fn() over reps runs after one warm-up, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> int:
+    if a.shape != b.shape:
+        raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
+    return int((a.long() - b.long()).abs().max())
+
+
+def phase_build(ctx):
+    from spasm_tpu_torch.ops import _cuda
+
+    ctx["card"] = card_line()
+    print(ctx["card"], flush=True)
+    t0 = time.perf_counter()
+    _cuda.lib()
+    wall = time.perf_counter() - t0
+    ptxas = [ln.strip() for ln in _cuda.build_log.splitlines()
+             if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
+    for ln in ptxas:
+        print("  ptxas: " + ln)
+    emit("build", card=ctx["card"], kind=torch.cuda.get_device_name(0),
+         torch=torch.__version__, cuda=torch.version.cuda,
+         nvcc_s=_cuda.build_seconds, load_s=round(wall, 3),
+         sources=[s.split("spasm_tpu_torch/")[-1] for s in _cuda.sources()])
+
+
+def phase_k1(ctx):
+    from spasm_tpu_torch import field
+    from spasm_tpu_torch.ops import cuda_matmul
+    from spasm_tpu_torch.ops.matmul import modmatmul_plain
+
+    rng = np.random.default_rng(11)
+    worst = 0
+    for i, (n, k, m, p) in enumerate(K1_CASES):
+        f = field(p)
+        a = torch.from_numpy(f.rand((n, k), rng).astype(np.int32)).to(DEV)
+        b = torch.from_numpy(f.rand((k, m), rng).astype(np.int32)).to(DEV)
+        got = cuda_matmul.modmatmul_cuda(f, a, b)
+        want = modmatmul_plain(f, a, b)
+        sync()
+        err = max_abs_diff(got, want)
+        worst = max(worst, err)
+        rec = dict(shape=[n, k, m], p=p, max_abs_err=err)
+        if i == 0:
+            # the two are timed in turns: kernel, plain, plain, kernel
+            t = [time_ms(lambda: cuda_matmul.modmatmul_cuda(f, a, b), 5),
+                 time_ms(lambda: modmatmul_plain(f, a, b), 3),
+                 time_ms(lambda: modmatmul_plain(f, a, b), 3),
+                 time_ms(lambda: cuda_matmul.modmatmul_cuda(f, a, b), 5)]
+            rec.update(ms=min(t[0], t[3]), plain_ms=min(t[1], t[2]),
+                       ms_runs=t)
+            modp_ops = 2.0 * n * k * m
+            rec["modp_tops"] = modp_ops / (rec["ms"] * 1e-3) / 1e12
+            ctx["k1_time"] = (rec["ms"], rec["plain_ms"])
+        emit("k1", **rec)
+        if err:
+            raise AssertionError(f"K1 differs from plain at {rec}")
+        del a, b, got, want
+    ctx["k1_err"] = worst
+
+
+def make_panel(f, n, c, rng, cut: bool):
+    """An (n, c) panel with zeros, planted zero columns and rows, duplicate
+    rows and pre-pivoted rows; with ``cut`` only the first 2c/3 columns
+    are eligible."""
+    P = f.rand((n, c), rng).astype(np.int32)
+    P[rng.random((n, c)) < 0.4] = 0
+    P[:, [3, c // 2, (3 * c) // 4]] = 0
+    P[rng.choice(n, n // 20, replace=False)] = 0
+    P[n // 2] = P[n // 3]
+    ispiv = np.zeros(n, bool)
+    ispiv[rng.choice(n, n // 10, replace=False)] = True
+    j0, npivcols = (256, 256 + (2 * c) // 3) if cut else (0, c)
+    return P, ispiv, j0, npivcols
+
+
+def phase_k2(ctx):
+    from spasm_tpu_torch import field
+    from spasm_tpu_torch.ops import cuda_panel
+    from spasm_tpu_torch.ops.dense import _panel_eliminate
+
+    rng = np.random.default_rng(12)
+    names = ("P", "G", "prow", "pcol", "pfound", "is_piv")
+    # (n, c, p, cut): c = 37 takes the kernel's scalar (not int4) path
+    cases = [(n, 128, p, False) for n in K2_ROWS for p in K2_PRIMES]
+    cases += [(n, 128, 42013, True) for n in K2_ROWS]
+    cases += [(96, 128, 42013, False), (300, 37, 42013, False),
+              (300, 37, 4294967291, True)]
+    worst = 0
+    for n, c, p, cut in cases:
+        f = field(p)
+        P, ispiv, j0, npivcols = make_panel(f, n, c, rng, cut)
+        Pt = torch.from_numpy(P).to(DEV)
+        It = torch.from_numpy(ispiv).to(DEV)
+        got = cuda_panel.panel_eliminate_cuda(f, npivcols, Pt, It, j0)
+        want = _panel_eliminate(f, Pt, It, j0, npivcols)
+        sync()
+        errs = {nm: max_abs_diff(g, w) for nm, g, w in zip(names, got, want)}
+        err = max(errs.values())
+        worst = max(worst, err)
+        rec = dict(n=n, c=c, p=p, j0=j0, npivcols=npivcols,
+                   pivots=int(want[4].sum()), max_abs_err=err)
+        if n == 1000 and c == 128 and p == 42013 and not cut:
+            t = [time_ms(lambda: cuda_panel.panel_eliminate_cuda(
+                     f, npivcols, Pt, It, j0), 20),
+                 time_ms(lambda: _panel_eliminate(f, Pt, It, j0, npivcols),
+                         3),
+                 time_ms(lambda: _panel_eliminate(f, Pt, It, j0, npivcols),
+                         3),
+                 time_ms(lambda: cuda_panel.panel_eliminate_cuda(
+                     f, npivcols, Pt, It, j0), 20)]
+            rec.update(ms=min(t[0], t[3]), plain_ms=min(t[1], t[2]),
+                       ms_runs=t)
+            ctx["k2_time"] = (rec["ms"], rec["plain_ms"])
+        emit("k2", **rec)
+        if err or not rec["pivots"]:
+            raise AssertionError(f"K2 differs from plain at {rec}: {errs}")
+    ctx["k2_err"] = worst
+
+
+def phase_rref(ctx):
+    from spasm_tpu_torch import field
+    from spasm_tpu_torch.ops import cuda_matmul, cuda_panel, dense
+
+    f = field(42013)
+    rng = np.random.default_rng(13)
+    n = 1024
+    X = f.rand((n, n), rng).astype(np.int32)
+    X[rng.random((n, n)) < 0.5] = 0
+    X[700:] = f.normalize(X[:324].astype(np.int64) * 5)   # rank 700
+    X[:, 5] = 0
+    l0, p0 = cuda_matmul.launches, cuda_panel.launches
+    t0 = time.perf_counter()
+    got = dense.rref(f, torch.from_numpy(X).to(DEV), want_transform=True,
+                     host_cutoff=0)
+    wall = time.perf_counter() - t0
+    k1, k2 = cuda_matmul.launches - l0, cuda_panel.launches - p0
+    want = dense.rref(f, torch.from_numpy(X), want_transform=True,
+                      host_cutoff=0)
+    bad = [k for k in ("R", "rank", "piv_rows", "piv_cols", "qinv", "T")
+           if not np.array_equal(np.asarray(got[k]), np.asarray(want[k]))]
+    emit("rref", shape=[n, n], p=f.p, rank=got["rank"], group_card=
+         dense.PANEL_GROUP, k1_launches=k1, k2_launches=k2,
+         card_s=round(wall, 4), mismatched=bad)
+    if bad or got["rank"] != 700:
+        raise AssertionError(f"rref card != cpu in {bad}, rank "
+                             f"{got['rank']}")
+    if DEV == "cuda" and not (k1 and k2):
+        raise AssertionError("the card rref launched no kernel")
+
+
+def planted_rank(A, keep: int, rng):
+    """A with rows keep.. replaced by random 3-row combinations of rows
+    0..keep-1, computed exactly on the host."""
+    import scipy.sparse as sp
+
+    from spasm_tpu_torch import SparseGFp
+
+    f = A.field
+    n, m = A.shape
+    S = A.to_scipy().astype(np.int64)
+    B = S[:keep]
+    extra = n - keep
+    rows = np.repeat(np.arange(extra), 3)
+    cols = np.stack([rng.choice(keep, 3, replace=False)
+                     for _ in range(extra)]).ravel()
+    coef = rng.integers(1, f.p, rows.size) - f.p // 2
+    coef[coef == 0] = 1
+    C = sp.csr_matrix((coef.astype(np.int64), (rows, cols)),
+                      shape=(extra, keep))
+    new = (C @ B).tocsr()
+    new.data = f.normalize(new.data)
+    new.eliminate_zeros()
+    return SparseGFp.from_scipy(sp.vstack([B, new]).tocsr(), f.p)
+
+
+def timed_rank(A, reps: int = 1):
+    from spasm_tpu_torch import last_phase_stats, rank
+
+    walls, r = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        r = rank(A, device=DEV)
+        sync()
+        walls.append(time.perf_counter() - t0)
+    return r, walls, last_phase_stats()
+
+
+def profile_rank(A, out_dir: str) -> None:
+    """Trace one rank(A) on the card: kernel time by name and busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from spasm_tpu_torch import rank
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rank(A, device=DEV)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy_s = sum(dev_us(e) for e in kernels) / 1e6
+    top = sorted(kernels, key=dev_us, reverse=True)[:15]
+    emit("profile", wall_s=round(wall, 4), device_busy_s=round(busy_s, 4),
+         busy_share=round(busy_s / wall, 4),
+         top=[dict(name=e.key[:90], calls=e.count,
+                   device_ms=round(dev_us(e) / 1e3, 3)) for e in top])
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, "flagship_trace.json"))
+
+
+def phase_e2e(ctx):
+    from spasm_tpu_torch import SparseGFp, field, rank
+    from spasm_tpu_torch._host.fixtures import simplex_boundary
+    from spasm_tpu_torch.ops import cuda_matmul, cuda_panel
+
+    f = field(42013)
+    N = FLAGSHIP_N
+    A = SparseGFp.rand(f, N, N, 0.02, np.random.default_rng(5))
+    if A.nnz != FLAGSHIP_NNZ:
+        raise AssertionError(f"flagship nnz {A.nnz} != {FLAGSHIP_NNZ}")
+    # the main path's launch counts: reset right before, read right after
+    cuda_matmul.launches = 0
+    cuda_panel.launches = 0
+    t0 = time.perf_counter()
+    r = rank(A, device=DEV)
+    sync()
+    first = time.perf_counter() - t0
+    ctx["launches"] = {"modmatmul": cuda_matmul.launches,
+                       "panel": cuda_panel.launches}
+    r2, walls, stats = timed_rank(A, reps=2)
+    emit("e2e", case=f"flagship {N}x{N} d=0.02 p=42013 seed 5", nnz=A.nnz,
+         rank=r, expected=N, first_wall_s=round(first, 4),
+         warm_walls_s=[round(w, 4) for w in walls], phases=stats,
+         launches=ctx["launches"])
+    if r != N or r2 != N:
+        raise AssertionError(f"flagship rank {r}, {r2} != {N}")
+    if DEV == "cuda" and not all(ctx["launches"].values()):
+        raise AssertionError(f"a kernel was not launched: {ctx['launches']}")
+
+    if ctx.get("profile_dir"):
+        profile_rank(A, ctx["profile_dir"])
+
+    Ap = planted_rank(A, PLANTED_KEEP, np.random.default_rng(6))
+    r, walls, stats = timed_rank(Ap, reps=2)
+    emit("e2e", case=f"planted rank: rows {PLANTED_KEEP}.. = 3-row "
+         "combinations of the rows above", nnz=Ap.nnz, rank=r,
+         expected=PLANTED_KEEP, walls_s=[round(w, 4) for w in walls],
+         phases=stats)
+    if r != PLANTED_KEEP:
+        raise AssertionError(f"planted rank {r} != {PLANTED_KEEP}")
+
+    B = simplex_boundary(22, 7)
+    want = math.comb(21, 7)
+    r, walls, stats = timed_rank(B, reps=2)
+    emit("e2e", case="simplex boundary (22, 7)", shape=list(B.shape),
+         nnz=B.nnz, rank=r, expected=want,
+         walls_s=[round(w, 4) for w in walls], phases=stats)
+    if B.shape != (319770, 170544) or B.nnz != 2558160 or r != want:
+        raise AssertionError(f"d7: shape {B.shape} nnz {B.nnz} rank {r}")
+
+
+def phase_echelon(ctx):
+    from spasm_tpu_torch import SparseGFp, echelonize, field, last_phase_stats
+    from spasm_tpu_torch._host.utils import logging as slog
+    from spasm_tpu_torch.interop import lu_arrays
+
+    A = SparseGFp.rand(field(42013), 3000, 720, 0.05,
+                       np.random.default_rng(7))
+    runs = {}
+    for dev in (DEV, "cpu"):
+        lines: list[str] = []
+        slog.set_log(lines.append)
+        try:
+            fact = echelonize(A, device=dev, dense_block_size=1500,
+                              verbose=True)
+        finally:
+            slog.set_log(None)
+        path = [ln for ln in lines if ln.startswith(
+            "[echelonize/dense] processing")]
+        runs[dev] = (lu_arrays(fact), last_phase_stats(), path)
+    (got, st_g, path_g), (want, st_c, path_c) = runs[DEV], runs["cpu"]
+    bad = [k for k in want if not np.array_equal(got.get(k), want[k])]
+    emit("echelon", shape=[3000, 720], nnz=A.nnz, rank=int(got["r"]),
+         path_card=path_g, path_cpu=path_c,
+         device_s=[st_g["device_s"], st_c["device_s"]], mismatched=bad)
+    if bad or set(got) != set(want):
+        raise AssertionError(f"echelonize card != cpu in {bad}")
+    if not (path_g and path_g == path_c and path_g[0].endswith("(device)")):
+        raise AssertionError(f"the runs took different finishes: {path_g} "
+                             f"vs {path_c}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="trace one flagship rank; Chrome trace into DIR")
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    unknown = set(phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible to torch", file=sys.stderr)
+        return 2
+    try:
+        import spasm_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: spasm_tpu_torch is not importable ({e}); run "
+              "from the repository root", file=sys.stderr)
+        return 2
+    from spasm_tpu_torch._host.utils.hostmem import tune_host_malloc
+
+    tune_host_malloc()
+    ctx: dict = {"profile_dir": args.profile}
+    t_all = time.perf_counter()
+    if "build" not in phases:
+        phases.insert(0, "build")
+    for ph in PHASES:
+        if ph in phases:
+            globals()[f"phase_{ph}"](ctx)
+    kernels = []
+    launches = ctx.get("launches", {})
+    for name, src, rep, tkey, ekey in (
+            ("modmatmul", "spasm_tpu_torch/csrc/modmatmul.cu",
+             "spasm_tpu/ops/pallas_matmul.py:125", "k1_time", "k1_err"),
+            ("panel", "spasm_tpu_torch/csrc/panel.cu",
+             "spasm_tpu/ops/pallas_panel.py:167", "k2_time", "k2_err")):
+        if ekey not in ctx:
+            continue
+        ms, plain_ms = ctx.get(tkey, (None, None))
+        kernels.append(dict(name=name, route="cuda", source=src,
+                            replaces=rep, launches=launches.get(name),
+                            max_abs_err=ctx[ekey], ms=ms, plain_ms=plain_ms))
+    print(f"[done] phases={','.join(p for p in PHASES if p in phases)} "
+          f"wall_s={time.perf_counter() - t_all:.1f}", flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(ctx["card"], flush=True)
+    if set(phases) != set(PHASES):
+        print("chip_smoke: partial run (--phases); no status line",
+              flush=True)
+        return 0
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,20 @@
+// Exact balanced reduction mod p on the device, shared by the kernels.
+#pragma once
+#include <stdint.h>
+
+// Balanced residue of x mod p, in [-(p-1)/2, (p-1)/2] for odd p: the
+// representation of spasm_tpu/field.py.  The quotient comes from a double
+// multiply; the int64 multiply-subtract is exact.  Precondition
+// |x| / p < 2**50: three roundings of relative size 2**-53 put the rounded
+// double quotient within 0.5 + 0.375 of x / p, so |x - q*p| < p and one
+// conditional fold lands in the balanced range.
+// Every caller passes |x| <= (p/2)**2 + p or |x| < 2**31.
+__device__ __forceinline__ long long bal_reduce(long long x, long long p,
+                                                double dinv) {
+    long long q = __double2ll_rn(static_cast<double>(x) * dinv);
+    long long r = x - q * p;
+    const long long half = p >> 1;
+    if (r > half) r -= p;
+    else if (r < -half) r += p;
+    return r;
+}

@@ -1,0 +1,106 @@
+"""Build and load the port's CUDA kernels.
+
+At first use, ``nvcc`` compiles every ``spasm_tpu_torch/csrc/*.cu`` into
+one shared library with a plain C interface,
+``build/spasm_tpu_torch/lib<hash of the sources>.so`` under the repository
+root, and ``ctypes`` loads it.  A build is reused while the sources are
+unchanged.  Importing this module needs neither CUDA nor nvcc: the build
+runs inside ``lib()``, which only the kernel wrappers call, and only for
+CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "spasm_tpu_torch")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None  # wall of the nvcc run in this process (None: cached)
+build_log = ""        # nvcc's stderr: ptxas registers / spills per kernel
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu"))
+                  + glob.glob(os.path.join(_CSRC, "*.cuh")))
+
+
+def _configure(lib):
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.spasm_modmatmul_tiles.restype = i32
+    lib.spasm_modmatmul_tiles.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
+    lib.spasm_modmatmul.restype = i32
+    lib.spasm_modmatmul.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
+                                    i32, i64, vp, vp]
+    lib.spasm_cuda_error_string.restype = ctypes.c_char_p
+    lib.spasm_cuda_error_string.argtypes = [i32]
+    lib.spasm_panel_eliminate.restype = i32
+    lib.spasm_panel_eliminate.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32,
+                                          i32, i32, i32, i64, vp]
+
+
+def lib():
+    """The loaded kernel library, built on first call."""
+    global _lib, build_seconds, build_log
+    with _lock:
+        if _lib is not None:
+            return _lib
+        srcs = sources()
+        h = hashlib.sha256()
+        for s in srcs:
+            with open(s, "rb") as fh:
+                h.update(os.path.basename(s).encode() + b"\0" + fh.read())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        so = os.path.join(BUILD_DIR, f"lib{h.hexdigest()[:16]}.so")
+        if not os.path.exists(so):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                   *[s for s in srcs if s.endswith(".cu")]]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
+                    f"{res.stderr}")
+            build_seconds = time.perf_counter() - t0
+            build_log = res.stderr
+            os.replace(tmp, so)
+        handle = ctypes.CDLL(so)
+        _configure(handle)
+        _lib = handle
+        return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launcher."""
+    if rc != 0:
+        msg = _lib.spasm_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg}) at launch")
+
+
+def stream_of(t) -> int:
+    """The current CUDA stream of t's device, as a pointer-sized int."""
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,56 @@
+"""K2 wrapper: the Jordan elimination of one column panel (CUDA).
+
+Replaces the Pallas panel kernels of ``spasm_tpu/ops/pallas_panel.py``
+(``_kernel_scalefree``, ``_kernel`` and ``_kernel_b``, entry point
+``panel_eliminate_pallas``); the kernel is ``spasm_tpu_torch/csrc/panel.cu``,
+whose header says what bounds it on the H100.  Its plain PyTorch version is
+``ops.dense._panel_eliminate``, and both return the same six outputs bit for
+bit, for every legal p and every n.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _cuda
+from . import modmul
+
+launches = 0  # kernel launches in this process (chip_smoke.py reads it)
+
+
+def panel_eliminate_cuda(f, npivcols: int, P: torch.Tensor,
+                         is_piv_row: torch.Tensor, j0: int):
+    """Drop-in for ``dense._panel_eliminate(f, P, is_piv_row, j0,
+    npivcols)`` on CUDA tensors: returns (P', G, prow, pcol, pfound,
+    is_piv') and leaves the inputs untouched."""
+    global launches
+    if not (P.is_cuda and is_piv_row.device == P.device):
+        raise ValueError("panel_eliminate_cuda needs P and is_piv_row on "
+                         f"one CUDA device, got {P.device}, "
+                         f"{is_piv_row.device}")
+    if P.dtype != torch.int32 or is_piv_row.dtype != torch.bool:
+        raise TypeError(f"expected int32 P and bool is_piv_row, got "
+                        f"{P.dtype}, {is_piv_row.dtype}")
+    if P.dim() != 2 or tuple(is_piv_row.shape) != (P.shape[0],):
+        raise ValueError(f"bad shapes P {tuple(P.shape)}, "
+                         f"is_piv_row {tuple(is_piv_row.shape)}")
+    modmul.check_device_prime(f)
+    n, c = P.shape
+    # the kernel works in place on contiguous copies
+    Pk = P.clone(memory_format=torch.contiguous_format)
+    ispiv = is_piv_row.clone(memory_format=torch.contiguous_format)
+    G = torch.zeros_like(Pk)
+    prow = torch.zeros(c, dtype=torch.int32, device=P.device)
+    pcol = torch.zeros(c, dtype=torch.int32, device=P.device)
+    pfound = torch.zeros(c, dtype=torch.bool, device=P.device)
+    beta = torch.empty(n, dtype=torch.int32, device=P.device)  # scratch
+    if not (Pk.is_contiguous() and ispiv.is_contiguous()):
+        raise ValueError("panel buffers must be contiguous")
+    with torch.cuda.device(P.device):
+        rc = _cuda.lib().spasm_panel_eliminate(
+            Pk.data_ptr(), G.data_ptr(), ispiv.data_ptr(), beta.data_ptr(),
+            prow.data_ptr(), pcol.data_ptr(), pfound.data_ptr(), n, c,
+            int(j0), int(npivcols), f.p, _cuda.stream_of(P))
+    launches += 1
+    _cuda.check(rc, "panel kernel")
+    return Pk, G, prow, pcol, pfound, ispiv

@@ -1,0 +1,66 @@
+"""Exact dense matrix product over GF(p): the port of
+``spasm_tpu/ops/matmul.py``.
+
+``modmatmul`` is the dispatching entry point.  On a CUDA tensor it
+launches K1 (``cuda_matmul.modmatmul_cuda``), at every size; on a CPU
+tensor it runs ``modmatmul_plain``, the limb path of the reference:
+
+    x = sum_i l_i 256**i,  l_i in [-128, 127]   (modmul.to_limbs)
+    A @ B mod p = sum_s (sum_{i+j=s} A_i @ B_j) * (256**s mod p)
+
+The limb products run as float64 matrix products (``torch.matmul`` has no
+integer product on CUDA).  They are exact: a diagonal of one k chunk sums at
+most ``_k_chunk(nl) * nl`` terms of magnitude <= 128 * 128, below 2**30,
+far inside float64's 2**53.  Each chunk's diagonals are reduced mod p and
+combined in int64, so the plain version gives the same bits on any device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .._host.field import num_limbs
+from . import modmul
+
+
+def _k_chunk(nl: int) -> int:
+    """k per chunk: chunk * 128 * 128 * nl <= 2**30 (as the reference)."""
+    return max(128, (1 << 30) // (16384 * nl) // 128 * 128)
+
+
+def modmatmul_plain(f, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch C = a @ b (mod p), balanced int32 in and out, on the
+    operands' device."""
+    modmul.check_device_prime(f)
+    n, k = a.shape
+    k2, m = b.shape
+    if k != k2:
+        raise ValueError(f"bad shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    nl = num_limbs(f.p)
+    al = modmul.to_limbs(f, a, nl).to(torch.float64)   # (n, k, nl)
+    bl = modmul.to_limbs(f, b, nl).to(torch.float64)   # (k, m, nl)
+    w = modmul.limb_weights(f, nl).tolist()
+    acc = torch.zeros((n, m), dtype=torch.int64, device=a.device)
+    chunk = _k_chunk(nl)
+    for c0 in range(0, k, chunk):
+        c1 = min(k, c0 + chunk)
+        diags = [None] * (2 * nl - 1)
+        for i in range(nl):
+            for j in range(nl):
+                prod = al[:, c0:c1, i] @ bl[c0:c1, :, j]
+                s = i + j
+                diags[s] = prod if diags[s] is None else diags[s] + prod
+        for s, d in enumerate(diags):
+            term = modmul.normalize(f, d.to(torch.int64)).to(torch.int64)
+            acc = modmul.normalize(f, acc + term * w[s]).to(torch.int64)
+    return acc.to(torch.int32)
+
+
+def modmatmul(f, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = a @ b (mod p), balanced int32 in and out.  CUDA tensors go to
+    the K1 kernel, CPU tensors to the plain version."""
+    if a.is_cuda or b.is_cuda:
+        from .cuda_matmul import modmatmul_cuda
+
+        return modmatmul_cuda(f, a, b)
+    return modmatmul_plain(f, a, b)

@@ -35,6 +35,12 @@ jax.config.update("jax_compilation_cache_dir", "/tmp/spasm_tpu_jax_cache")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (the port's CUDA kernels); "
+        "skipped without one")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)

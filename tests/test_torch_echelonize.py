@@ -1,0 +1,178 @@
+"""The port's echelonize (spasm_tpu_torch, device="cpu") against the JAX
+package's spasm_tpu.echelonize on the CPU, for the slice as a whole: the
+two LU factorizations, read through interop.lu_arrays, are equal array for
+array (rank, qinv, p, piv_cols, U, L, lp_order, dense_piv_start).  GF(p)
+arithmetic is exact, so the tolerance is 0."""
+
+import importlib
+import re
+
+import numpy as np
+import pytest
+import torch
+
+import spasm_tpu as st
+from spasm_tpu import SparseGFp, field
+from spasm_tpu import fixtures as fx
+from spasm_tpu.ops import dense as ref_dense
+
+import spasm_tpu_torch as stt
+from spasm_tpu_torch import interop
+from spasm_tpu_torch.ops import dense as port_dense
+
+ref_ech = importlib.import_module("spasm_tpu.echelonize")
+port_ech = importlib.import_module("spasm_tpu_torch.echelonize")
+F = field(42013)
+
+
+def _untimed(line):
+    return re.sub(r"\d+\.\d+s", "", line)
+
+
+def run_both(A, logs=False, same_logs=True, **kw):
+    """Echelonize A in both packages; assert equal LUs (and logs) and
+    return the port's arrays (and the reference's and the port's log lines
+    with ``logs``)."""
+    from spasm_tpu.utils import logging as ref_log
+    from spasm_tpu_torch._host.utils import logging as port_log
+
+    ref_lines, port_lines = [], []
+    ref_log.set_log(ref_lines.append)
+    port_log.set_log(port_lines.append)
+    try:
+        want = interop.lu_arrays(st.echelonize(A, verbose=True, **kw))
+        got = interop.lu_arrays(stt.echelonize(
+            interop.sparse_from_reference(A), verbose=True, device="cpu",
+            **kw))
+    finally:
+        ref_log.set_log(None)
+        port_log.set_log(None)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], k)
+    if same_logs:  # the logs agree up to the walls they print
+        assert ([_untimed(s) for s in port_lines]
+                == [_untimed(s) for s in ref_lines])
+    return (got, ref_lines, port_lines) if logs else got
+
+
+@pytest.mark.parametrize("n,k", [(8, 3), (10, 4), (12, 5)])
+def test_simplex_boundary(n, k):
+    got = run_both(fx.simplex_boundary(n, k))
+    assert got["r"] == fx.expected_boundary_rank(n, k)
+
+
+@pytest.mark.parametrize("shape,density", [((120, 100), 0.05),
+                                           ((200, 150), 0.02),
+                                           ((400, 60), 0.1),
+                                           ((60, 300), 0.08)])
+def test_random(shape, density, rng):
+    run_both(SparseGFp.rand(F, *shape, density, rng))
+
+
+@pytest.mark.parametrize("case", ["subcomplex", "zipf", "mixed"])
+def test_irregular_fixtures(case):
+    A = {"subcomplex": lambda: fx.subcomplex_boundary(11, 4, keep=0.8),
+         "zipf": lambda: fx.zipf_sparse(F, 300, 260, mean_nnz=6.0, seed=3),
+         "mixed": lambda: fx.mixed_block_matrix(F, seed=1)}[case]()
+    assert run_both(A)["r"] > 0
+
+
+def test_round0_dense_switch(rng, monkeypatch):
+    # on an accelerator (patched on both sides) the round loop switches to
+    # the dense finish at device_sparsity_threshold
+    monkeypatch.setattr(ref_ech, "_on_accelerator", lambda: True)
+    monkeypatch.setattr(port_ech, "_on_accelerator", lambda device: True)
+    A = SparseGFp.rand(F, 300, 300, 0.02, rng)
+    _, lines, _ = run_both(A, logs=True, sparsity_threshold=0.9,
+                           device_sparsity_threshold=1e-9, max_round=3)
+    assert any("too dense" in s for s in lines)
+
+
+def test_device_mode_finish(rng, monkeypatch):
+    # the dense finish's device-mode block loop (the reference's fused
+    # single-dispatch finish), forced at a small size; blocks of 128 rows
+    # are the reference's bucketed block height too
+    monkeypatch.setattr(ref_dense, "HOST_CUTOFF", 1)
+    monkeypatch.setattr(port_dense, "HOST_CUTOFF", 1)
+    A = SparseGFp.rand(F, 300, 200, 0.06, rng)
+    _, lines, _ = run_both(A, logs=True, max_round=0, dense_block_size=128)
+    assert any(s.endswith("(device)") for s in lines)
+
+
+def test_device_mode_low_rank_tail(rng, monkeypatch):
+    # tall and low-rank: the block loop with per-block rank readbacks and
+    # the randomized tail check.  The reference reads each block's rank
+    # one block late (to hide link latency), so it runs its check after
+    # one more block than the port; the LU is the same.
+    import scipy.sparse as sp
+
+    monkeypatch.setattr(ref_dense, "HOST_CUTOFF", 1)
+    monkeypatch.setattr(port_dense, "HOST_CUTOFF", 1)
+    X = sp.random(900, 20, density=0.3, random_state=rng,
+                  data_rvs=lambda k: rng.integers(1, 1000, k), dtype=np.int64)
+    Y = sp.random(20, 60, density=0.3, random_state=rng,
+                  data_rvs=lambda k: rng.integers(1, 1000, k), dtype=np.int64)
+    A = SparseGFp.from_scipy((X @ Y).tocsr(), F.p)
+    got, ref_lines, port_lines = run_both(
+        A, logs=True, same_logs=False, max_round=0, dense_block_size=128)
+
+    def remaining(lines):
+        hits = [re.search(r"remaining (\d+) rows dependent", s)
+                for s in lines]
+        return [int(h.group(1)) for h in hits if h]
+
+    assert remaining(port_lines) == [r + 128 for r in remaining(ref_lines)]
+    assert len(remaining(port_lines)) == 1
+    assert got["r"] <= 20
+
+
+@pytest.mark.parametrize("case", ["boundary", "dense_corner"])
+def test_L_factor(case, rng):
+    A = (fx.simplex_boundary(10, 4) if case == "boundary"
+         else SparseGFp.rand(F, 300, 320, 0.012, rng))
+    got = run_both(A, L=True)
+    assert "L_data" in got and "lp_order" in got
+
+
+@pytest.mark.parametrize("p", [2147483629, 4294967291])
+@pytest.mark.parametrize("case", ["boundary", "random"])
+def test_large_primes(p, case, rng):
+    # tier B and tier C primes (below the big-prime host cutoff, so the
+    # dense finish stays on the host NumPy elimination in both packages)
+    A = (fx.simplex_boundary(9, 3, p) if case == "boundary"
+         else SparseGFp.rand(field(p), 150, 120, 0.05, rng))
+    run_both(A)
+    run_both(A, L=True)
+
+
+def test_rank_and_interop(rng):
+    A = SparseGFp.rand(F, 80, 90, 0.05, rng)
+    B = interop.sparse_from_reference(A)
+    assert isinstance(B, stt.SparseGFp) and B.shape == A.shape
+    for name in ("indptr", "indices", "data"):
+        np.testing.assert_array_equal(getattr(B, name), getattr(A, name))
+    C = interop.sparse_from_arrays(A.field.p, A.shape, A.indptr, A.indices,
+                                   A.data)
+    assert C == B
+    assert stt.rank(B, device="cpu") == st.rank(A)
+    fact = stt.echelonize(B, device="cpu")
+    assert stt.rank(fact) == fact.r == st.rank(A)
+
+
+@pytest.mark.parametrize("kw", [dict(checkpoint="x"), dict(resume="x"),
+                                dict(mesh=object()),
+                                dict(device_sparse_min_nnz=1),
+                                dict(complete=True)])
+def test_deferred_features_raise(kw):
+    A = stt.SparseGFp.from_dense([[1, 2], [3, 4]], 42013)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        stt.echelonize(A, device="cpu", **kw)
+
+
+def test_cuda_device_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: device='cuda' runs")
+    A = stt.SparseGFp.from_dense([[1, 2], [3, 4]], 42013)
+    with pytest.raises((RuntimeError, AssertionError)):
+        stt.rank(A)
