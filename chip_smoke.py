@@ -2,7 +2,7 @@
 """Smoke test of spasm_tpu_torch, the PyTorch / CUDA port, on one NVIDIA card.
 
     python3 chip_smoke.py            # every phase, as the acceptance run
-    python3 chip_smoke.py --phases build,k1,k2
+    python3 chip_smoke.py --phases build,k1,k2,k3
     python3 chip_smoke.py --phases build,e2e --profile build/profile
 
 Phases, one line each:
@@ -14,12 +14,24 @@ Phases, one line each:
            count, k past one accumulator interval)
   k2       the panel elimination kernel against its plain version, both on
            the card, bit for bit in all six outputs (n = 1000 timed)
-  rref     dense.rref with the transform on the card (panel group 4)
+  k3       the merge kernel against its plain version, both on the card,
+           bit for bit in all three outputs, at widths 128 .. 65536 (the
+           global-memory variant above 16384), widths that are not powers
+           of two and 2**20, for five primes, and at the tile shapes of
+           d8's two classes; timed at d8's Wt = 272 tile
+  rref    dense.rref with the transform on the card (panel group 4)
            against the same call on CPU tensors (group 1)
   e2e      rank(A, device="cuda") at real size: the 8192^2 d=0.02 random
            matrix (rank 8192), a planted-rank variant (rank 7168) and the
            simplex boundary (22, 7) (rank 116280), with the launch counts
   echelon  echelonize on the card against device="cpu": equal LU
+  sparse   the device sparse Schur path (device_sparse_min_nnz): round-0
+           pairs of the d7 and d8 boundaries and the random 30k^2 matrix
+           through the one-pass merge on the card against the host kernel
+           (CSR-equal, one K3 launch per device call, and K3 bit-equal to
+           the plain merge on every tile of one more run); the ranks of d8 and
+           the random matrix with the option on and off, with the launch
+           counts; echelonize of d7 with the option, card against CPU
 
 With ``--profile DIR``, e2e also traces one warm flagship rank with
 torch.profiler: kernel time by name, the device's busy share, and a Chrome
@@ -45,7 +57,7 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("build", "k1", "k2", "rref", "e2e", "echelon")
+PHASES = ("build", "k1", "k2", "k3", "rref", "e2e", "echelon", "sparse")
 DEV = "cuda"
 
 # (n, k, m, p): K1 comparison shapes; the first is timed
@@ -65,6 +77,20 @@ K1_CASES = [
 FLAGSHIP_N, FLAGSHIP_NNZ, PLANTED_KEEP = 8192, 1_343_173, 7168
 K2_PRIMES = (5, 42013, 92681, 2147483629, 4294967291)
 K2_ROWS = (1000, 4096, 8192)
+# K3 comparison widths: powers of two (16384 is the widest row the kernel
+# keeps in shared memory; 65536 takes its global-memory variant), the
+# class widths that are not powers of two, and a wide one; each case holds
+# about K3_SLOTS slots.
+K3_WIDTHS = (128, 512, 2048, 8192, 16384, 65536, 80, 272, 1040, 40000)
+K3_SLOTS = 1 << 21
+# the tiles d8's one-pass gives K3, (rows, Wt) of its two classes' chunks,
+# at d8's p and m; the second is timed
+K3_D8 = ((735471, 32), (262144, 272))
+K3_D8_PM = (42013, 1562275)
+# the sparse phase's cases: simplex_boundary(n, k) with its rank, and the
+# random matrix of the JAX package's tools/device_crossover.py
+D7, D8 = (22, 7, 116280), (26, 8, 1081575)
+RANDOM30K = (30000, 2e-4, 42)              # n, density, seed
 
 
 def emit(phase: str, **kw) -> None:
@@ -218,6 +244,78 @@ def phase_k2(ctx):
         if err or not rec["pivots"]:
             raise AssertionError(f"K2 differs from plain at {rec}: {errs}")
     ctx["k2_err"] = worst
+
+
+def merge_tile(f, R, W, m, rng, span=None):
+    """An (R, W) merge tile: int32 cols in [0, m] (each row's live cols in
+    a window of ``span`` (default m) values, so duplicates are frequent;
+    30% dead slots with col == m and val 0) and balanced vals, with an
+    all-dead row, a row whose entries all cancel, a single-run row and a
+    row of one repeated entry."""
+    span = span or m
+    base = rng.integers(0, m - span + 1, (R, 1))
+    cols = (base + rng.integers(0, span, (R, W))).astype(np.int32)
+    cols[rng.random((R, W)) < 0.3] = m
+    vals = f.rand((R, W), rng).astype(np.int64)
+    vals[cols == m] = 0
+    cols[0], vals[0] = m, 0
+    h = W // 2
+    cols[1, :h] = rng.integers(0, m, h)
+    cols[1, h:2 * h] = cols[1, :h]
+    vals[1, h:2 * h] = -vals[1, :h]
+    cols[1, 2 * h:], vals[1, 2 * h:] = m, 0
+    cols[2] = m // 2
+    cols[3], vals[3] = m // 3, vals[3, 0]
+    return (torch.from_numpy(cols).to(DEV),
+            torch.from_numpy(vals.astype(np.int32)).to(DEV))
+
+
+def phase_k3(ctx):
+    from spasm_tpu_torch import field
+    from spasm_tpu_torch.ops import cuda_merge
+    from spasm_tpu_torch.ops.merge import merge_rows_plain
+
+    # both versions sort each row by (col, val as uint32), so the sorted
+    # row, and with it every partial sum, is unique: the contract is
+    # bit-equality of cols, vals and keep at every slot
+    rng = np.random.default_rng(14)
+    names = ("cols", "vals", "keep")
+    # (R, W, p, m, span)
+    cases = [(max(4, K3_SLOTS // W), W, p, max(4, W // 3), None)
+             for W in K3_WIDTHS for p in K2_PRIMES]
+    cases.append((4, 1 << 20, 42013, (1 << 20) // 3, None))
+    p8, m8 = K3_D8_PM
+    cases += [(R, W, p8, m8, max(4, W // 3)) for R, W in K3_D8]
+    worst = 0
+    for i, (R, W, p, m, span) in enumerate(cases):
+        f = field(p)
+        c, v = merge_tile(f, R, W, m, rng, span)
+        got = cuda_merge.merge_rows_cuda(f, c, v, m)
+        want = merge_rows_plain(f, c, v, m)
+        sync()
+        errs = {nm: max_abs_diff(g, w) for nm, g, w in zip(names, got, want)}
+        err = max(errs.values())
+        worst = max(worst, err)
+        rec = dict(R=R, W=W, p=p, m=m, kept=int(want[2].sum()),
+                   max_abs_err=err)
+        del got, want
+        if i == len(cases) - 1:
+            # d8's Wt = 272 tile, timed in turns: kernel, plain, plain,
+            # kernel
+            t = [time_ms(lambda: cuda_merge.merge_rows_cuda(f, c, v, m), 5),
+                 time_ms(lambda: merge_rows_plain(f, c, v, m), 2),
+                 time_ms(lambda: merge_rows_plain(f, c, v, m), 2),
+                 time_ms(lambda: cuda_merge.merge_rows_cuda(f, c, v, m), 5)]
+            rec.update(ms=min(t[0], t[3]), plain_ms=min(t[1], t[2]),
+                       ms_runs=t)
+            # one read and one write of every slot: 8 bytes in, 9 out
+            rec["gbps"] = R * W * 17 / (rec["ms"] * 1e-3) / 1e9
+            ctx["k3_time"] = (rec["ms"], rec["plain_ms"])
+        emit("k3", **rec)
+        if err:
+            raise AssertionError(f"K3 differs from plain at {rec}: {errs}")
+        del c, v
+    ctx["k3_err"] = worst
 
 
 def phase_rref(ctx):
@@ -400,6 +498,170 @@ def phase_echelon(ctx):
                              f"vs {path_c}")
 
 
+def csr_equal(a, b) -> bool:
+    import scipy.sparse as sp
+
+    a, b = sp.csr_matrix(a), sp.csr_matrix(b)
+    for x in (a, b):
+        x.sort_indices()
+        x.eliminate_zeros()
+    return (a.shape == b.shape and np.array_equal(a.indptr, b.indptr)
+            and np.array_equal(a.indices, b.indices)
+            and np.array_equal(a.data, b.data))
+
+
+def sparse_cases():
+    from spasm_tpu_torch import SparseGFp, field
+    from spasm_tpu_torch._host.fixtures import simplex_boundary
+
+    n, d, seed = RANDOM30K
+    return [(f"d7 boundary {D7[:2]}", lambda: simplex_boundary(*D7[:2]),
+             D7[2]),
+            (f"d8 boundary {D8[:2]}", lambda: simplex_boundary(*D8[:2]),
+             D8[2]),
+            (f"random {n}^2 d={d} seed {seed}",
+             lambda: SparseGFp.rand(field(42013), n, n, d,
+                                    np.random.default_rng(seed)), None)]
+
+
+def onepass_pair(name, A):
+    """Round 0 of A as echelonize forms it; the host update
+    (mutual_reduce + eliminate_against_reduced) against the one-pass
+    merge on the card (mutual_reduce + eliminate_onepass_device), timed
+    host, card, card, host; then one card run with K3 held against the
+    plain merge on each tile the path gives it."""
+    from spasm_tpu_torch._host.elimination import (eliminate_against_reduced,
+                                                   mutual_reduce)
+    from spasm_tpu_torch._host.pivots import find_structural_pivots
+    from spasm_tpu_torch.echelonize import _round_schur_estimate
+    from spasm_tpu_torch.ops import cuda_merge
+    from spasm_tpu_torch.ops.merge import merge_rows_plain
+    from spasm_tpu_torch.ops.sparse_onepass import eliminate_onepass_device
+
+    f = A.field
+    prows, pcols, _ = find_structural_pivots(A)
+    _, S_rest, _, (Upart, _, levels) = _round_schur_estimate(
+        f, A.to_scipy(), prows, pcols)
+
+    def host():
+        Ustar, ok = mutual_reduce(f, Upart, pcols, levels)
+        assert ok, name
+        return eliminate_against_reduced(f, Ustar, pcols, S_rest,
+                                         assume_canonical=True)[0]
+
+    def card(stats):
+        Ustar, ok = mutual_reduce(f, Upart, pcols, levels)
+        assert ok, name
+        cuda_merge.launches = 0
+        D = eliminate_onepass_device(f, Ustar, pcols, S_rest, device=DEV,
+                                     _stats=stats)
+        stats["k3_launches"] = cuda_merge.launches
+        return D
+
+    def checked():
+        """One more, untimed, card run in which every K3 call is held
+        against the plain merge on the same tile, in all three outputs."""
+        kernel = cuda_merge.merge_rows_cuda
+        tiles = []
+
+        def held(f_, c, v, m_):
+            got = kernel(f_, c, v, m_)
+            want = merge_rows_plain(f_, c, v, m_)
+            tiles.append(dict(shape=list(c.shape), kept=int(want[2].sum()),
+                              max_abs_err=max(max_abs_diff(g, w)
+                                              for g, w in zip(got, want))))
+            return got
+
+        cuda_merge.merge_rows_cuda = held
+        try:
+            return card({}), tiles
+        finally:
+            cuda_merge.merge_rows_cuda = kernel
+
+    walls, runs = {"host": [], "card": []}, []
+    for side in ("host", "card", "card", "host"):
+        stats: dict = {}
+        t0 = time.perf_counter()
+        out = host() if side == "host" else card(stats)
+        walls[side].append(time.perf_counter() - t0)
+        runs.append((side, out, stats))
+    D_checked, tiles = checked()
+    Dh = runs[0][1]
+    stats = runs[2][2]
+    equal = (all(csr_equal(Dh, out) for _, out, _ in runs[1:])
+             and csr_equal(Dh, D_checked))
+    tile_err = max((t["max_abs_err"] for t in tiles), default=None)
+    emit("sparse", part="round-0 pair", case=name, S_rest=list(S_rest.shape),
+         S_rest_nnz=S_rest.nnz, U_rows=int(pcols.size), D_nnz=Dh.nnz,
+         host_s=walls["host"], card_s=walls["card"], onepass=stats,
+         equal=equal, k3_tiles_vs_plain=tiles)
+    if not equal:
+        raise AssertionError(f"{name}: one-pass on the card != host kernel")
+    if DEV == "cuda" and (len(tiles) != stats["device_calls"] or tile_err):
+        raise AssertionError(f"{name}: K3 != plain merge on the path's "
+                             f"tiles: {tiles}")
+    if DEV == "cuda" and not (
+            stats["device_calls"] == stats["k3_launches"] > 0):
+        raise AssertionError(f"{name}: device calls {stats['device_calls']}"
+                             f" vs K3 launches {stats['k3_launches']}")
+
+
+def phase_sparse(ctx):
+    from spasm_tpu_torch import echelonize, last_phase_stats, rank
+    from spasm_tpu_torch.interop import lu_arrays
+    from spasm_tpu_torch.ops import cuda_matmul, cuda_merge, cuda_panel
+
+    merge_launches = 0
+    for name, make, want in sparse_cases():
+        t0 = time.perf_counter()
+        A = make()
+        emit("sparse", part="build", case=name, shape=list(A.shape),
+             nnz=A.nnz, build_s=round(time.perf_counter() - t0, 3))
+        onepass_pair(name, A)
+        if name.startswith("d7"):
+            continue
+        ranks = {}
+        for opt in (0, 1):
+            # the main path's launch counts: reset right before, read
+            # right after
+            cuda_matmul.launches = cuda_panel.launches = 0
+            cuda_merge.launches = 0
+            t0 = time.perf_counter()
+            r = rank(A, device=DEV, device_sparse_min_nnz=opt)
+            sync()
+            wall = time.perf_counter() - t0
+            counts = {"modmatmul": cuda_matmul.launches,
+                      "panel": cuda_panel.launches,
+                      "merge": cuda_merge.launches}
+            ranks[opt] = r
+            emit("sparse", part="rank", case=name, device_sparse_min_nnz=opt,
+                 rank=r, expected=want, wall_s=round(wall, 4),
+                 phases=last_phase_stats(), launches=counts)
+            if opt and DEV == "cuda":
+                need = ("merge",) if want else ("merge", "modmatmul", "panel")
+                if not all(counts[k] for k in need):
+                    raise AssertionError(f"{name}: a kernel of the path was "
+                                         f"not launched: {counts}")
+                merge_launches += counts["merge"]
+        if ranks[1] != ranks[0] or (want is not None and ranks[1] != want):
+            raise AssertionError(f"{name}: ranks {ranks}, expected {want}")
+        del A
+    ctx.setdefault("launches", {})["merge"] = merge_launches
+
+    A = sparse_cases()[0][1]()
+    runs = {}
+    for dev in (DEV, "cpu"):
+        t0 = time.perf_counter()
+        fact = echelonize(A, device=dev, device_sparse_min_nnz=1)
+        runs[dev] = (lu_arrays(fact), round(time.perf_counter() - t0, 4))
+    (got, wall_g), (want, wall_c) = runs[DEV], runs["cpu"]
+    bad = [k for k in want if not np.array_equal(got.get(k), want[k])]
+    emit("sparse", part="echelonize", case=sparse_cases()[0][0],
+         rank=int(got["r"]), walls_s=[wall_g, wall_c], mismatched=bad)
+    if bad or set(got) != set(want) or got["r"] != D7[2]:
+        raise AssertionError(f"d7 echelonize card != cpu in {bad}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -436,7 +698,9 @@ def main(argv=None) -> int:
             ("modmatmul", "spasm_tpu_torch/csrc/modmatmul.cu",
              "spasm_tpu/ops/pallas_matmul.py:125", "k1_time", "k1_err"),
             ("panel", "spasm_tpu_torch/csrc/panel.cu",
-             "spasm_tpu/ops/pallas_panel.py:167", "k2_time", "k2_err")):
+             "spasm_tpu/ops/pallas_panel.py:167", "k2_time", "k2_err"),
+            ("merge", "spasm_tpu_torch/csrc/merge.cu",
+             "spasm_tpu/ops/pallas_merge.py:45", "k3_time", "k3_err")):
         if ekey not in ctx:
             continue
         ms, plain_ms = ctx.get(tkey, (None, None))

@@ -13,9 +13,13 @@ of the accumulated RREF.
 The device is chosen by the caller: ``device="cuda"`` (the default) or
 ``device="cpu"`` by name.  Without a card, ``device="cuda"`` raises.
 
+With ``device_sparse_min_nnz=N`` a round whose remaining rows hold at
+least N nonzeros takes the device sparse Schur update
+(``ops/sparse_onepass.py``: the K3 merge on a card, its plain version on
+the CPU) instead of the host kernel, as in the reference.
+
 Not ported yet (they raise ``NotImplementedError``): ``checkpoint=`` /
-``resume=``, ``mesh=``, ``device_sparse_min_nnz != 0`` and
-``opts.complete``.
+``resume=``, ``mesh=`` and ``opts.complete``.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from ._host.pivots import find_structural_pivots
 from ._host.sputil import dense_matmul_host, mod_reduce
 from ._host.utils.logging import log, push_verbose, wtime
 from .ops import dense as dense_ops
+from .ops import sparse_onepass
 
 
 @dataclasses.dataclass
@@ -57,7 +62,8 @@ class EchelonizeOptions:
     # max dense elements for the dense finish; None = auto: 35% of the
     # card's memory in int32 elements, floor 2e8 (the CPU value)
     dense_budget: "int | None" = None
-    # device sparse Schur above this nnz; only 0 (off) is ported
+    # device sparse Schur when the remaining rows hold at least this many
+    # nonzeros; 0 disables (ignored with L)
     device_sparse_min_nnz: int = 0
     # on a card, switch to the dense finish at this LOWER estimated Schur
     # density whenever it fits the dense budget; None disables
@@ -134,9 +140,13 @@ _LAST_STATS: dict = {}
 
 def last_phase_stats() -> dict:
     """Per-phase walls of the most recent ``echelonize`` call in this
-    process: pivot_s, schur_s, finish_s, assemble_s, device_s (the dense
-    finish on the device, ended by a synchronize), total_s, and
-    device_share = device_s / total_s."""
+    process: pivot_s, schur_s, finish_s, assemble_s, device_s, total_s,
+    and device_share = device_s / total_s.  device_s is the dense finish on
+    the device, ended by a synchronize, plus, with device_sparse_min_nnz,
+    the whole wall of each device sparse round: that round's host work
+    (mutual_reduce, class keys, tile building, assembly) included, so
+    device_share then does not measure the card's busy share (the
+    one-pass ``_stats`` device_s is the card's span)."""
     return dict(_LAST_STATS)
 
 
@@ -160,8 +170,6 @@ def echelonize(A: SparseGFp, opts: EchelonizeOptions | None = None,
     if device.type == "cuda":
         torch.zeros(0, device=device)  # raises here when there is no card
     opts = parse_echelonize_opts(opts, device=device, **kwargs)
-    if opts.device_sparse_min_nnz:
-        _not_ported("device_sparse_min_nnz != 0", "item 11")
     if opts.complete:
         _not_ported("opts.complete", "item 6")
     if not isinstance(verbose, bool):
@@ -222,8 +230,9 @@ def _echelonize_impl(A: SparseGFp, opts: EchelonizeOptions,
 
         t0 = wtime()
         # Monte-Carlo density estimate BEFORE paying for the full Schur;
-        # the rest-row gather is only needed by the L path
-        need_rest = opts.L
+        # the rest-row gather is only needed by the L path and the device
+        # sparse path
+        need_rest = opts.L or bool(opts.device_sparse_min_nnz)
         est, S_rest, rest_rows, blk = _round_schur_estimate(
             f, S, prows, pcols, need_rest=need_rest)
         Upart, piv_vals, levels_blk = blk
@@ -268,37 +277,48 @@ def _echelonize_impl(A: SparseGFp, opts: EchelonizeOptions,
                 del blk2
         reduced_L = False
         piv_L = None
-        # mutual-reduce the round's pivot block once, then the Schur
-        # update of the remaining rows is a single product; with L, every
-        # row's coefficients against the REDUCED block are its values at
-        # the pivot columns (see the reference for the lp_order argument)
-        Ustar, ok = mutual_reduce(f, Upart, pcols, levels_blk)
-        if ok:
-            if opts.L:
-                cmap = np.full(S.shape[1], -1, np.int64)
-                cmap[pcols] = np.arange(npiv)
-                Uc = sp.coo_matrix(Upart)
-                pm = cmap[Uc.col] >= 0
-                piv_L = (row_origin[prows][Uc.row[pm]],
-                         r + cmap[Uc.col[pm]],
-                         f.normalize(Uc.data[pm].astype(np.int64)
-                                     * piv_vals[Uc.row[pm]]))
-                reduced_L = True
-            if S_rest is not None:
-                S_new, C = eliminate_against_reduced(
-                    f, Ustar, pcols, S_rest, record_coeffs=opts.L,
-                    assume_canonical=True)
-            else:
-                S_new, C = eliminate_against_reduced(
-                    f, Ustar, pcols, S, record_coeffs=False,
-                    assume_canonical=True, rows=rest_rows)
-            Upart = Ustar
-        else:  # fill blow-up guard: wave cascade
-            if S_rest is None:
-                S_rest = _gather_rest(S, rest_rows)
-            S_new, C = wave_eliminate(f, Upart, pcols, levels_blk,
-                                      S_rest, record_coeffs=opts.L,
-                                      assume_canonical=True)
+        S_new = C = None
+        if (not opts.L and opts.device_sparse_min_nnz
+                and S_rest.nnz >= opts.device_sparse_min_nnz):
+            # the round's U block stays the unreduced Upart, as in the
+            # reference
+            t_dev = wtime()
+            S_new = _device_sparse_schur(f, Upart, pcols, levels_blk, S_rest,
+                                         device)
+            stats["device_s"] += wtime() - t_dev
+        if S_new is None:
+            # mutual-reduce the round's pivot block once, then the Schur
+            # update of the remaining rows is a single product; with L,
+            # every row's coefficients against the REDUCED block are its
+            # values at the pivot columns (see the reference for the
+            # lp_order argument)
+            Ustar, ok = mutual_reduce(f, Upart, pcols, levels_blk)
+            if ok:
+                if opts.L:
+                    cmap = np.full(S.shape[1], -1, np.int64)
+                    cmap[pcols] = np.arange(npiv)
+                    Uc = sp.coo_matrix(Upart)
+                    pm = cmap[Uc.col] >= 0
+                    piv_L = (row_origin[prows][Uc.row[pm]],
+                             r + cmap[Uc.col[pm]],
+                             f.normalize(Uc.data[pm].astype(np.int64)
+                                         * piv_vals[Uc.row[pm]]))
+                    reduced_L = True
+                if S_rest is not None:
+                    S_new, C = eliminate_against_reduced(
+                        f, Ustar, pcols, S_rest, record_coeffs=opts.L,
+                        assume_canonical=True)
+                else:
+                    S_new, C = eliminate_against_reduced(
+                        f, Ustar, pcols, S, record_coeffs=False,
+                        assume_canonical=True, rows=rest_rows)
+                Upart = Ustar
+            else:  # fill blow-up guard: wave cascade
+                if S_rest is None:
+                    S_rest = _gather_rest(S, rest_rows)
+                S_new, C = wave_eliminate(f, Upart, pcols, levels_blk,
+                                          S_rest, record_coeffs=opts.L,
+                                          assume_canonical=True)
         dens = S_new.nnz / max(1, S_new.shape[0] * S_new.shape[1])
         log(f"Schur complement: {S_new.shape[0]} * {S_new.shape[1]} "
             f"[{S_new.nnz} nz / density= {dens:.3f}], "
@@ -484,6 +504,29 @@ def _dense_feasible(S, opts, device: torch.device) -> bool:
     if device.type == "cpu":
         budget = min(budget, 2_000_000)
     return (opts.dense_block_size + min(nrows, na)) * na <= budget
+
+
+def _device_sparse_schur(f: Field, Upart, pcols, levels, S_rest,
+                         device: torch.device):
+    """Round Schur update on ``device`` (the reference's function of the
+    same name, on one device): mutual-reduce the round's pivot block on the
+    host, then the one-pass batched merge of ``ops/sparse_onepass``, whose
+    padded work may reach 1 << 30 slots on a card and 1 << 27 on the CPU.
+    Where the block does not reduce within its fill cap or the merge is
+    over its budget, the host waves eliminate against the unreduced block
+    (the reference runs its device waves there; the Schur complement is
+    the same matrix).  A kernel that fails raises."""
+    budget = (1 << 30) if _on_accelerator(device) else (1 << 27)
+    Ustar, ok = mutual_reduce(f, Upart, pcols, levels)
+    if ok:
+        D = sparse_onepass.eliminate_onepass_device(
+            f, Ustar, pcols, S_rest, work_budget=budget, device=device)
+        if D is not None:
+            return D
+    log("[schur/device] one-pass unavailable; wave fallback")
+    S_new, _ = wave_eliminate(f, Upart, pcols, levels, S_rest,
+                              assume_canonical=True)
+    return S_new
 
 
 def schur_estimate_density(f: Field, U_sp, piv_cols, levels, S_rest,

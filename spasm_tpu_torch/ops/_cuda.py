@@ -59,6 +59,11 @@ def _configure(lib):
     lib.spasm_panel_eliminate.restype = i32
     lib.spasm_panel_eliminate.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32,
                                           i32, i32, i32, i64, vp]
+    lib.spasm_merge_scratch_rows.restype = i64
+    lib.spasm_merge_scratch_rows.argtypes = [i64, i32, i32]
+    lib.spasm_merge_rows.restype = i32
+    lib.spasm_merge_rows.argtypes = [vp, vp, vp, vp, vp, vp, i64, i32, i32,
+                                     i64, i32, vp]
 
 
 def lib():

@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from spasm_tpu_torch import SparseGFp, echelonize, field
+from spasm_tpu_torch._host.fixtures import simplex_boundary
 from spasm_tpu_torch.interop import lu_arrays
-from spasm_tpu_torch.ops import cuda_matmul, cuda_panel, dense, matmul
+from spasm_tpu_torch.ops import (cuda_matmul, cuda_merge, cuda_panel, dense,
+                                 matmul, merge, sparse_onepass)
 
 pytestmark = pytest.mark.cuda
 PRIMES = [5, 42013, 92681, 2147483629, 4294967291]
@@ -86,6 +88,88 @@ def test_echelonize_card_matches_cpu(card, monkeypatch):
     kw = dict(dense_block_size=256, device_sparsity_threshold=None)
     got = lu_arrays(echelonize(A, device=card, **kw))
     want = lu_arrays(echelonize(A, device="cpu", **kw))
+    assert set(got) == set(want)
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
+
+
+def _merge_tile(f, R, W, m, seed):
+    """(R, W) int32 cols in [0, m] with dead slots (col == m, val 0) and
+    frequent duplicates, plus an all-dead row, a row whose entries all
+    cancel and a single-run row."""
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, m, (R, W)).astype(np.int32)
+    cols[rng.random((R, W)) < 0.3] = m
+    vals = f.rand((R, W), rng).astype(np.int64)
+    vals[cols == m] = 0
+    cols[0], vals[0] = m, 0
+    h = W // 2
+    cols[1, h:2 * h] = cols[1, :h]
+    vals[1, h:2 * h] = -vals[1, :h]
+    cols[1, 2 * h:], vals[1, 2 * h:] = m, 0
+    cols[2] = m // 2
+    return torch.from_numpy(cols), torch.from_numpy(vals.astype(np.int32))
+
+
+@pytest.mark.parametrize("W", [128, 512, 2048, 8192, 16384, 65536, 80, 1040,
+                               40000])
+@pytest.mark.parametrize("p", PRIMES)
+def test_merge_kernel_matches_plain(p, W, card):
+    # 65536 and 40000 take the kernel's global-memory variant; the plain
+    # version sorts by the same (col, val) key, so all three outputs are
+    # bit-equal
+    f = field(p)
+    R, m = max(3, (1 << 19) // W), max(3, W // 3)
+    cols, vals = _merge_tile(f, R, W, m, W + p % 97)
+    cols, vals = cols.to(card), vals.to(card)
+    before = cuda_merge.launches
+    got = merge.merge_rows(f, cols, vals, m)     # dispatches to the kernel
+    assert cuda_merge.launches == before + 1
+    want = merge.merge_rows_plain(f, cols, vals, m)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", ["random", "boundary"])
+def test_onepass_card_matches_cpu(case, card):
+    from spasm_tpu_torch._host import elimination as E
+    from spasm_tpu_torch._host.pivots import find_structural_pivots
+    from spasm_tpu_torch.echelonize import _round_schur_estimate
+
+    A = (SparseGFp.rand(field(42013), 3000, 3000, 7e-4,
+                        np.random.default_rng(42)) if case == "random"
+         else simplex_boundary(14, 5))
+    f = A.field
+    prows, pcols, _ = find_structural_pivots(A)
+    _, S_rest, _, (Upart, _, levels) = _round_schur_estimate(
+        f, A.to_scipy(), prows, pcols)
+    Ustar, ok = E.mutual_reduce(f, Upart, pcols, levels)
+    assert ok
+    out = {}
+    for dev in (card, "cpu"):
+        stats = {}
+        before = cuda_merge.launches
+        D = sparse_onepass.eliminate_onepass_device(
+            f, Ustar, pcols, S_rest, min_class_rows=0, device=dev,
+            _stats=stats)
+        out[str(dev)] = (D, stats, cuda_merge.launches - before)
+    (Dg, sg, lg), (Dc, sc, lc) = out[str(card)], out["cpu"]
+    assert lg == sg["device_calls"] > 0 and lc == 0
+    assert all(sg[k] == sc[k] for k in ("classes", "chunks", "device_calls",
+                                         "host_fallback_rows"))
+    for name in ("indptr", "indices", "data"):
+        assert np.array_equal(getattr(Dg, name), getattr(Dc, name)), name
+
+
+def test_echelonize_device_sparse_card_matches_cpu(card):
+    # simplex_boundary(16, 5) has a class of 2048+ rows: the card's round
+    # goes through K3
+    A = simplex_boundary(16, 5)
+    before = cuda_merge.launches
+    got = lu_arrays(echelonize(A, device=card, device_sparse_min_nnz=1))
+    assert cuda_merge.launches > before
+    want = lu_arrays(echelonize(A, device="cpu", device_sparse_min_nnz=1))
     assert set(got) == set(want)
     for k in want:
         assert np.array_equal(got[k], want[k]), k

@@ -162,7 +162,6 @@ def test_rank_and_interop(rng):
 
 @pytest.mark.parametrize("kw", [dict(checkpoint="x"), dict(resume="x"),
                                 dict(mesh=object()),
-                                dict(device_sparse_min_nnz=1),
                                 dict(complete=True)])
 def test_deferred_features_raise(kw):
     A = stt.SparseGFp.from_dense([[1, 2], [3, 4]], 42013)
