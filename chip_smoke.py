@@ -13,7 +13,10 @@ Phases, one line each:
            card, bit for bit (4096^3 timed, unaligned shapes, every limb
            count, k past one accumulator interval)
   k2       the panel elimination kernel against its plain version, both on
-           the card, bit for bit in all six outputs (n = 1000 timed)
+           the card, bit for bit in all six outputs (n = 1 .. 8192, c = 37
+           .. 4096, five primes; n = 1000 and 4096 timed, with the time
+           of each phase of a step and a latency bound: the pivot steps
+           times the shortest cluster barrier of one step)
   k3       the merge kernel against its plain version, both on the card,
            bit for bit in all three outputs, at widths 128 .. 65536 (the
            global-memory variant above 16384), widths that are not powers
@@ -38,8 +41,9 @@ torch.profiler: kernel time by name, the device's busy share, and a Chrome
 trace in DIR.
 
 Every comparison is exact (GF(p) arithmetic: tolerance 0); a mismatch
-raises.  The last three lines are the kernels' JSON, the card's name and
-power limit, and the status JSON.
+raises.  The last three lines are the kernels' JSON (with each kernel's
+bound at the timed shape and, for K1, an int8 tensor-core yardstick), the
+card's name and power limit, and the status JSON.
 Without a card, or without the spasm_tpu_torch package beside this script,
 it exits non-zero before printing any result.
 """
@@ -91,6 +95,11 @@ K3_D8_PM = (42013, 1562275)
 # random matrix of the JAX package's tools/device_crossover.py
 D7, D8 = (22, 7, 116280), (26, 8, 1081575)
 RANDOM30K = (30000, 2e-4, 42)              # n, density, seed
+# the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W) for the
+# kernels' bounds: device memory, int8 tensor cores, and the float32 rate
+# outside the tensor cores, which stands for the integer and compare work
+# of K2 and K3 (two operations per multiply-add)
+HBM_BYTES_S, INT8_OPS_S, ALU_OPS_S = 3.35e12, 1979e12, 67e12
 
 
 def emit(phase: str, **kw) -> None:
@@ -126,6 +135,13 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes: float, ops: float, ops_per_s: float):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate for their type."""
+    tb, to = nbytes / HBM_BYTES_S * 1e3, ops / ops_per_s * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
 def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.shape != b.shape:
         raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
@@ -154,6 +170,7 @@ def phase_build(ctx):
 
 def phase_k1(ctx):
     from spasm_tpu_torch import field
+    from spasm_tpu_torch._host.field import num_limbs
     from spasm_tpu_torch.ops import cuda_matmul
     from spasm_tpu_torch.ops.matmul import modmatmul_plain
 
@@ -179,7 +196,23 @@ def phase_k1(ctx):
                        ms_runs=t)
             modp_ops = 2.0 * n * k * m
             rec["modp_tops"] = modp_ops / (rec["ms"] * 1e-3) / 1e12
-            ctx["k1_time"] = (rec["ms"], rec["plain_ms"])
+            # the kernel's method: nl**2 int8 plane products on the
+            # tensor cores; each operand read once, C written once
+            nl = num_limbs(p)
+            rec["bound_ms"], rec["bound_by"] = bound(
+                4.0 * (n * k + k * m + n * m), nl * nl * modp_ops,
+                INT8_OPS_S)
+            # yardstick, not the same function: torch._int_mm of one int8
+            # limb plane, times nl**2 (the port never calls it)
+            a8 = torch.randint(-128, 128, (n, k), dtype=torch.int8,
+                               device=DEV)
+            b8 = torch.randint(-128, 128, (k, m), dtype=torch.int8,
+                               device=DEV)
+            rec["library_ms"] = nl * nl * time_ms(
+                lambda: torch._int_mm(a8, b8), 5)
+            del a8, b8
+            ctx["k1_time"] = (rec["ms"], rec["plain_ms"], rec["bound_ms"],
+                              rec["bound_by"], rec["library_ms"])
         emit("k1", **rec)
         if err:
             raise AssertionError(f"K1 differs from plain at {rec}")
@@ -187,10 +220,11 @@ def phase_k1(ctx):
     ctx["k1_err"] = worst
 
 
-def make_panel(f, n, c, rng, cut: bool):
+def make_panel(f, n, c, rng, kind: str = "full"):
     """An (n, c) panel with zeros, planted zero columns and rows, duplicate
-    rows and pre-pivoted rows; with ``cut`` only the first 2c/3 columns
-    are eligible."""
+    rows and pre-pivoted rows.  ``kind``: "full" (every column eligible),
+    "cut" (only the first 2c/3 columns), "allpiv" (every row pre-pivoted)
+    or "nocols" (npivcols <= j0: no column eligible)."""
     P = f.rand((n, c), rng).astype(np.int32)
     P[rng.random((n, c)) < 0.4] = 0
     P[:, [3, c // 2, (3 * c) // 4]] = 0
@@ -198,8 +232,60 @@ def make_panel(f, n, c, rng, cut: bool):
     P[n // 2] = P[n // 3]
     ispiv = np.zeros(n, bool)
     ispiv[rng.choice(n, n // 10, replace=False)] = True
-    j0, npivcols = (256, 256 + (2 * c) // 3) if cut else (0, c)
+    if kind == "allpiv":
+        ispiv[:] = True
+    j0, npivcols = {"cut": (256, 256 + (2 * c) // 3),
+                    "nocols": (256, 200)}.get(kind, (0, c))
     return P, ispiv, j0, npivcols
+
+
+def panel_work(f, P, ispiv, j0, npivcols) -> int:
+    """Mod-p multiply-adds this panel needs: a replay of the per-step form
+    on the host, counting at each pivot every row with a nonzero in the
+    pivot column times the columns that can change (P from the pivot
+    column on, G up to the slot)."""
+    P = P.astype(np.int64)
+    isp = ispiv.copy()
+    n, c = P.shape
+    kk = work = 0
+    for jj in range(c):
+        if j0 + jj >= npivcols:
+            break
+        col = P[:, jj].copy()
+        cand = np.flatnonzero((col != 0) & ~isp)
+        if not cand.size:
+            continue
+        pr = int(cand[0])
+        rows = np.flatnonzero(col)
+        work += rows.size * ((c - jj) + (kk + 1))
+        pinv = int(f.inv(np.int64(col[pr])))
+        beta = f.normalize(-col * pinv)
+        beta[pr] = f.normalize(np.int64(pinv - 1))
+        P[rows] = f.normalize(P[rows] + beta[rows, None] * P[pr][None, :])
+        isp[pr] = True
+        kk += 1
+    return work
+
+
+def k2_phases(f, Pt, It, j0, npivcols) -> dict:
+    """Mean microseconds of a pivot step's phases, from one launch whose
+    first CTA stamps the global timer at each phase's end."""
+    from spasm_tpu_torch.ops import cuda_panel
+
+    c = Pt.shape[1]
+    stamps = torch.zeros((c, 1 + len(cuda_panel.PHASES)), dtype=torch.int64,
+                         device=Pt.device)
+    cuda_panel.panel_eliminate_cuda(f, npivcols, Pt, It, j0, stamps=stamps)
+    t = stamps.cpu().numpy().astype(np.float64)
+    t = t[t[:, -1] > 0]                      # the steps with a pivot
+    d = np.diff(t, axis=1).mean(axis=0) / 1e3
+    out = {nm: round(float(x), 4) for nm, x in zip(cuda_panel.PHASES, d)}
+    out["step"] = round(float((t[:, -1] - t[:, 0]).mean() / 1e3), 4)
+    out["pivot_steps"] = int(t.shape[0])
+    # the shortest pass through the cluster barrier, from the first CTA's
+    # push to its release: no step can take less
+    out["min_barrier"] = round(float((t[:, 2] - t[:, 1]).min() / 1e3), 4)
+    return out
 
 
 def phase_k2(ctx):
@@ -209,39 +295,62 @@ def phase_k2(ctx):
 
     rng = np.random.default_rng(12)
     names = ("P", "G", "prow", "pcol", "pfound", "is_piv")
-    # (n, c, p, cut): c = 37 takes the kernel's scalar (not int4) path
-    cases = [(n, 128, p, False) for n in K2_ROWS for p in K2_PRIMES]
-    cases += [(n, 128, 42013, True) for n in K2_ROWS]
-    cases += [(96, 128, 42013, False), (300, 37, 42013, False),
-              (300, 37, 4294967291, True)]
+    # (n, c, p, kind): c = 37 takes the kernel's scalar (not int4) path;
+    # n = 4096 and 8192 keep the rows in global memory; n = 192 is the
+    # flagship's last block, 1 and 5 leave CTAs of the 16-CTA cluster
+    # without rows; c = 1000 and 4096 are the widest panels
+    cases = [(n, 128, p, "full") for n in K2_ROWS for p in K2_PRIMES]
+    cases += [(n, 128, 42013, "cut") for n in K2_ROWS]
+    cases += [(96, 128, 42013, "full"), (300, 37, 42013, "full"),
+              (300, 37, 4294967291, "cut"), (192, 128, 42013, "full"),
+              (1, 128, 42013, "full"), (5, 128, 42013, "full"),
+              (5, 37, 4294967291, "full"), (1000, 128, 42013, "allpiv"),
+              (1000, 128, 42013, "nocols"), (64, 1000, 2147483629, "full"),
+              (64, 4096, 42013, "full")]
     worst = 0
-    for n, c, p, cut in cases:
+    for n, c, p, kind in cases:
         f = field(p)
-        P, ispiv, j0, npivcols = make_panel(f, n, c, rng, cut)
+        P, ispiv, j0, npivcols = make_panel(f, n, c, rng, kind)
         Pt = torch.from_numpy(P).to(DEV)
         It = torch.from_numpy(ispiv).to(DEV)
-        got = cuda_panel.panel_eliminate_cuda(f, npivcols, Pt, It, j0)
-        want = _panel_eliminate(f, Pt, It, j0, npivcols)
+
+        def kernel():
+            return cuda_panel.panel_eliminate_cuda(f, npivcols, Pt, It, j0)
+
+        def plain():
+            return _panel_eliminate(f, Pt, It, j0, npivcols)
+
+        got = kernel()
+        want = plain()
         sync()
         errs = {nm: max_abs_diff(g, w) for nm, g, w in zip(names, got, want)}
         err = max(errs.values())
         worst = max(worst, err)
-        rec = dict(n=n, c=c, p=p, j0=j0, npivcols=npivcols,
+        rec = dict(n=n, c=c, p=p, kind=kind, j0=j0, npivcols=npivcols,
                    pivots=int(want[4].sum()), max_abs_err=err)
-        if n == 1000 and c == 128 and p == 42013 and not cut:
-            t = [time_ms(lambda: cuda_panel.panel_eliminate_cuda(
-                     f, npivcols, Pt, It, j0), 20),
-                 time_ms(lambda: _panel_eliminate(f, Pt, It, j0, npivcols),
-                         3),
-                 time_ms(lambda: _panel_eliminate(f, Pt, It, j0, npivcols),
-                         3),
-                 time_ms(lambda: cuda_panel.panel_eliminate_cuda(
-                     f, npivcols, Pt, It, j0), 20)]
+        if c == 128 and p == 42013 and kind == "full" and n in (1000, 4096):
+            # timed in turns: kernel, plain, plain, kernel
+            t = [time_ms(kernel, 20), time_ms(plain, 2), time_ms(plain, 2),
+                 time_ms(kernel, 20)]
             rec.update(ms=min(t[0], t[3]), plain_ms=min(t[1], t[2]),
                        ms_runs=t)
-            ctx["k2_time"] = (rec["ms"], rec["plain_ms"])
+            # P read, P and G written, is_piv read and written, and the
+            # three pivot vectors written; two operations a multiply-add
+            work = panel_work(f, P, ispiv, j0, npivcols)
+            rec["muladds"] = work
+            rec["bound_ms"], rec["bound_by"] = bound(
+                12.0 * n * c + 2.0 * n + 9.0 * c, 2.0 * work, ALU_OPS_S)
+            # the steps are a chain: each waits on one cluster barrier
+            st = k2_phases(f, Pt, It, j0, npivcols)
+            rec["latency_bound_ms"] = (st["pivot_steps"] * st["min_barrier"]
+                                       / 1e3)
+            rec["step_us"] = st
+            if n == 1000:
+                ctx["k2_time"] = (rec["ms"], rec["plain_ms"],
+                                  rec["bound_ms"], rec["bound_by"], None)
         emit("k2", **rec)
-        if err or not rec["pivots"]:
+        no_pivot = kind in ("allpiv", "nocols")
+        if err or bool(rec["pivots"]) == no_pivot:
             raise AssertionError(f"K2 differs from plain at {rec}: {errs}")
     ctx["k2_err"] = worst
 
@@ -310,7 +419,13 @@ def phase_k3(ctx):
                        ms_runs=t)
             # one read and one write of every slot: 8 bytes in, 9 out
             rec["gbps"] = R * W * 17 / (rec["ms"] * 1e-3) / 1e9
-            ctx["k3_time"] = (rec["ms"], rec["plain_ms"])
+            # the bitonic network on the row padded to Wp: Wp/2
+            # compare-exchanges in each of L(L+1)/2 stages
+            L = max(7, (W - 1).bit_length())
+            rec["bound_ms"], rec["bound_by"] = bound(
+                17.0 * R * W, R * (2 ** L // 2) * L * (L + 1) / 2, ALU_OPS_S)
+            ctx["k3_time"] = (rec["ms"], rec["plain_ms"], rec["bound_ms"],
+                              rec["bound_by"], None)
         emit("k3", **rec)
         if err:
             raise AssertionError(f"K3 differs from plain at {rec}: {errs}")
@@ -703,10 +818,13 @@ def main(argv=None) -> int:
              "spasm_tpu/ops/pallas_merge.py:45", "k3_time", "k3_err")):
         if ekey not in ctx:
             continue
-        ms, plain_ms = ctx.get(tkey, (None, None))
+        ms, plain_ms, bound_ms, bound_by, library_ms = ctx.get(
+            tkey, (None,) * 5)
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=rep, launches=launches.get(name),
-                            max_abs_err=ctx[ekey], ms=ms, plain_ms=plain_ms))
+                            max_abs_err=ctx[ekey], ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=library_ms))
     print(f"[done] phases={','.join(p for p in PHASES if p in phases)} "
           f"wall_s={time.perf_counter() - t_all:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

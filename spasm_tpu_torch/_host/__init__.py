@@ -1,27 +1,15 @@
-"""The JAX package's host layer, loaded without JAX.
+"""The port's host layer: NumPy/SciPy modules and the C kernels of ``csrc/``.
 
-``spasm_tpu/__init__.py`` imports jax (it configures jax's compilation
-cache), and Python runs a package's ``__init__`` before any of its
-submodules, so ``import spasm_tpu.pivots`` would load jax.  The host
-modules themselves (NumPy, SciPy and the C kernels of ``csrc/`` loaded by
-``native.py``) never import jax at module level.
+These are copies of the JAX package's jax-free host modules (``field``,
+``csr``, ``sputil``, ``native``, ``pivots``, ``elimination``, ``io``,
+``fixtures``, ``utils.logging`` and ``utils.hostmem``) and of the C sources
+``native.py`` builds, kept in the port so that it loads nothing of
+``spasm_tpu``.  The code is the reference's, so the port's pivot choices,
+``LU.p`` and ``qinv`` are the reference's.  Where the copies differ:
 
-This package points its ``__path__`` at the ``spasm_tpu/`` directory, so
-``spasm_tpu_torch._host.pivots`` loads ``spasm_tpu/pivots.py`` under this
-package's name and its relative imports (``.csr``, ``.native``, ...)
-resolve here too.  The port thereby shares one copy of the host rounds:
-its pivot choices, ``LU.p`` and ``qinv`` are the reference's by
-construction.
-
-Only these modules may be imported from here: ``field``, ``csr``,
-``sputil``, ``native``, ``pivots``, ``elimination``, ``io``, ``fixtures``,
-``utils.logging`` and ``utils.hostmem``.  ``echelonize``, ``solve``,
-``ops``, ``parallel``, ``certificate``, ``blocks`` and ``cli`` import jax;
-the port has its own ``echelonize`` and ``solve``.
+* ``native.py`` builds ``_host/csrc/*.c`` into
+  ``build/spasm_tpu_torch/host/`` under the repository root;
+* ``csr.SparseGFp.__truediv__`` reaches the port's ``echelonize.LU`` and
+  raises ``NotImplementedError``: the port has no sparse triangular solve
+  yet.
 """
-
-import os as _os
-
-__path__ = [_os.path.join(
-    _os.path.dirname(_os.path.dirname(_os.path.dirname(
-        _os.path.abspath(__file__)))), "spasm_tpu")]

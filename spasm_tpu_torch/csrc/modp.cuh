@@ -8,7 +8,8 @@
 // |x| / p < 2**50: three roundings of relative size 2**-53 put the rounded
 // double quotient within 0.5 + 0.375 of x / p, so |x - q*p| < p and one
 // conditional fold lands in the balanced range.
-// Every caller passes |x| <= (p/2)**2 + p or |x| < 2**31.
+// Every caller passes |x| <= 2 (p/2)**2 + p or |x| < 2**31, so
+// |x| / p < 2**32.
 __device__ __forceinline__ long long bal_reduce(long long x, long long p,
                                                 double dinv) {
     long long q = __double2ll_rn(static_cast<double>(x) * dinv);

@@ -1,6 +1,6 @@
 """Carry matrices and factorizations between ``spasm_tpu`` and the port.
 
-The port loads the host modules under its own package name
+The port keeps its own copy of the host modules
 (``spasm_tpu_torch._host``), so its ``SparseGFp`` is a different class from
 the reference's even though the code is the same.  These helpers go
 through plain numpy arrays and never import jax or ``spasm_tpu``.

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-At first use, ``nvcc`` compiles every ``spasm_tpu_torch/csrc/*.cu`` into
-one shared library with a plain C interface,
+At first use, ``nvcc`` compiles every ``spasm_tpu_torch/csrc/*.cu`` to an
+object, one process for each source, all started together, and links them
+into one shared library with a plain C interface,
 ``build/spasm_tpu_torch/lib<hash of the sources>.so`` under the repository
-root, and ``ctypes`` loads it.  A build is reused while the sources are
+root, which ``ctypes`` loads.  A build is reused while the sources are
 unchanged.  Importing this module needs neither CUDA nor nvcc: the build
 runs inside ``lib()``, which only the kernel wrappers call, and only for
 CUDA tensors.
@@ -26,7 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "spasm_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -47,6 +48,12 @@ def sources() -> list[str]:
                   + glob.glob(os.path.join(_CSRC, "*.cuh")))
 
 
+def _check_nvcc(cmd, returncode: int, stderr: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}): {' '.join(cmd)}\n"
+                           f"{stderr}")
+
+
 def _configure(lib):
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.spasm_modmatmul_tiles.restype = i32
@@ -58,7 +65,7 @@ def _configure(lib):
     lib.spasm_cuda_error_string.argtypes = [i32]
     lib.spasm_panel_eliminate.restype = i32
     lib.spasm_panel_eliminate.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32,
-                                          i32, i32, i32, i64, vp]
+                                          i32, i32, i32, i64, vp, vp]
     lib.spasm_merge_scratch_rows.restype = i64
     lib.spasm_merge_scratch_rows.argtypes = [i64, i32, i32]
     lib.spasm_merge_rows.restype = i32
@@ -82,17 +89,35 @@ def lib():
         if not os.path.exists(so):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                   *[s for s in srcs if s.endswith(".cu")]]
             t0 = time.perf_counter()
+            nvcc = _nvcc()
+            objs, jobs = [], []
+            for src in (s for s in srcs if s.endswith(".cu")):
+                obj = f"{tmp}.{os.path.basename(src)}.o"
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+                objs.append(obj)
+                jobs.append((cmd, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)))
+            logs = []
+            try:
+                for cmd, job in jobs:
+                    _, err = job.communicate()
+                    _check_nvcc(cmd, job.returncode, err)
+                    logs.append(err)
+            finally:
+                for _, job in jobs:   # none outlives a failed build
+                    if job.poll() is None:
+                        job.kill()
+                        job.wait()
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
             res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                    f"{res.stderr}")
+            _check_nvcc(cmd, res.returncode, res.stderr)
             build_seconds = time.perf_counter() - t0
-            build_log = res.stderr
+            build_log = "".join(logs)
             os.replace(tmp, so)
+            for obj in objs:
+                os.remove(obj)
         handle = ctypes.CDLL(so)
         _configure(handle)
         _lib = handle

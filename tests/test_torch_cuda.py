@@ -50,11 +50,13 @@ def test_modmatmul_kernel_matches_plain(p, shape, card):
     assert got.dtype == torch.int32 and torch.equal(got, want)
 
 
-@pytest.mark.parametrize("n,c", [(1000, 128), (300, 37)])
+@pytest.mark.parametrize("n,c", [(1000, 128), (300, 37), (4096, 128),
+                                 (192, 128), (5, 128), (1, 37)])
 @pytest.mark.parametrize("cut", [False, True])
 @pytest.mark.parametrize("p", PRIMES)
 def test_panel_kernel_matches_plain(p, cut, n, c, card):
-    # c = 37 takes the kernel's scalar (not int4) path
+    # c = 37 takes the kernel's scalar (not int4) path; n = 4096 keeps the
+    # rows in global memory; n = 5 and 1 leave CTAs of the cluster idle
     f = field(p)
     P = _rand(f, (n, c), 3, density=0.6)
     P[:, 7] = 0
@@ -67,6 +69,37 @@ def test_panel_kernel_matches_plain(p, cut, n, c, card):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", ["all_prepivoted", "no_column"])
+def test_panel_kernel_finds_no_pivot(case, card):
+    # every row pre-pivoted, or npivcols <= j0: no pivot, and the same
+    # six outputs as the plain version
+    f = field(42013)
+    P = _rand(f, (1000, 128), 5, density=0.6).to(card)
+    ispiv = torch.zeros(1000, dtype=torch.bool, device=card)
+    isp, j0, npivcols = ((~ispiv, 0, 128) if case == "all_prepivoted"
+                         else (ispiv, 256, 200))
+    got = cuda_panel.panel_eliminate_cuda(f, npivcols, P, isp, j0)
+    want = dense._panel_eliminate(f, P, isp, j0, npivcols)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not bool(got[4].any())
+
+
+def test_panel_kernel_rejects_what_it_does_not_take(card):
+    f = field(42013)
+    P = torch.zeros((4, 8), dtype=torch.int32, device=card)
+    ispiv = torch.zeros(4, dtype=torch.bool, device=card)
+    with pytest.raises(ValueError):
+        cuda_panel.panel_eliminate_cuda(f, 8, P[:, :0], ispiv, 0)
+    with pytest.raises(ValueError):
+        cuda_panel.panel_eliminate_cuda(
+            f, 5000, torch.zeros((4, 5000), dtype=torch.int32, device=card),
+            ispiv, 0)
+    with pytest.raises(TypeError):
+        cuda_panel.panel_eliminate_cuda(f, 8, P.long(), ispiv, 0)
 
 
 def test_rref_card_matches_cpu(card):
