@@ -8,10 +8,17 @@
 Phases, one line each:
 
   build    the card, its power limit, and the nvcc build of
-           spasm_tpu_torch/csrc/*.cu (with ptxas's register / spill lines)
-  k1       the mod-p matmul kernel against its plain version, both on the
-           card, bit for bit (4096^3 timed, unaligned shapes, every limb
-           count, k past one accumulator interval)
+           spasm_tpu_torch/csrc/*.cu (with ptxas's register / spill lines,
+           and the count of wgmma, TMA and mbarrier instructions in the
+           SASS of each K1 product kernel)
+  k1       the mod-p matmul kernels against their plain versions, both on
+           the card: the limb split byte for byte against pack_planes_plain
+           (both operands, every limb count, strided views), the product
+           bit for bit against modmatmul_plain at the main path's shapes,
+           at n, k, m of 1 and one past a tile, every limb count and k
+           past one fold interval; at 4096^3 and each main-path shape the
+           wrapper call, the split launches alone and the product launch
+           alone are timed
   k2       the panel elimination kernel against its plain version, both on
            the card, bit for bit in all six outputs (n = 1 .. 8192, c = 37
            .. 4096, five primes; n = 1000 and 4096 timed, with the time
@@ -54,6 +61,8 @@ import argparse
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -64,17 +73,38 @@ import torch
 PHASES = ("build", "k1", "k2", "k3", "rref", "e2e", "echelon", "sparse")
 DEV = "cuda"
 
-# (n, k, m, p): K1 comparison shapes; the first is timed
+# (n, k, m, p): the K1 shapes that are timed: 4096^3 (the kernels line),
+# then the shapes rref_inplace and blocked_finish_step give K1 on the
+# flagship: a panel's window update, the group's 512^2 resolve, the group
+# update, and a block against the accumulated RREF early, late and tall
+K1_TIMED = [
+    (4096, 4096, 4096, 42013),
+    (1000, 128, 128, 42013),
+    (512, 512, 512, 42013),
+    (1000, 512, 8192, 42013),
+    (1000, 1000, 8192, 42013),
+    (1000, 7168, 8192, 42013),
+    (7168, 1000, 8192, 42013),
+]
+# compared only
 K1_CASES = [
-    (4096, 4096, 4096, 42013),        # timed
+    (1000, 1000, 8192, 2147483629),   # tier B, 4 limbs
+    (1000, 1000, 8192, 4294967291),   # tier C, 5 limbs
     (130, 260, 140, 42013),           # unaligned
     (130, 260, 140, 5),               # 1 limb
     (130, 260, 140, 92681),           # 3 limbs
     (130, 260, 140, 2147483629),      # 4 limbs
     (130, 260, 140, 4294967291),      # 5 limbs
-    (1000, 1000, 8192, 42013),        # a block against the accumulated RREF
-    (40, 140_000, 48, 5),             # k past one 1-limb accumulator interval
-    (40, 30_000, 48, 4294967291),     # k past one 5-limb accumulator interval
+    (1, 260, 140, 42013),             # n, k, m at 1 ...
+    (130, 1, 140, 42013),
+    (130, 260, 1, 42013),
+    (1, 1, 1, 42013),
+    (129, 260, 140, 42013),           # ... and one past a tile multiple
+    (130, 129, 140, 42013),
+    (130, 260, 129, 42013),
+    (129, 129, 33, 4294967291),
+    (40, 140_000, 48, 5),             # k past one 1-limb fold interval
+    (40, 30_000, 48, 4294967291),     # k past one 5-limb fold interval
 ]
 # the flagship: SparseGFp.rand(field(42013), N, N, 0.02, default_rng(5)),
 # and its planted-rank variant keeping the first PLANTED_KEEP rows
@@ -150,6 +180,35 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.long() - b.long()).abs().max())
 
 
+_SASS_OP = re.compile(
+    r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)")
+
+
+def sass_census(lib_path: str, mnemonics=("IGMMA", "UTMALDG", "SYNCS")):
+    """{kernel: {instruction: count}} for K1's product kernels in the
+    built library, from ``cuobjdump -sass``, over the instructions that
+    start with one of ``mnemonics``: IGMMA is the warpgroup integer MMA
+    (wgmma), UTMALDG a TMA tensor load, SYNCS an mbarrier operation.
+    None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    census: dict = {}
+    kernel = None
+    for line in text.splitlines():
+        if line.lstrip().startswith("Function :"):
+            m = re.search(r"modmatmul_kernelILi(\d)E", line)
+            kernel = f"modmatmul_kernel<{m[1]}>" if m else None
+            continue
+        m = _SASS_OP.match(line)
+        if m and kernel and m.group(1).startswith(tuple(mnemonics)):
+            ops = census.setdefault(kernel, {})
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return census
+
+
 def phase_build(ctx):
     from spasm_tpu_torch.ops import _cuda
 
@@ -159,49 +218,134 @@ def phase_build(ctx):
     _cuda.lib()
     wall = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in _cuda.build_log.splitlines()
-             if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
+             if any(w in ln for w in ("Used", "spill", "Compiling entry",
+                                      "arning", "wgmma", "setmaxnreg"))]
     for ln in ptxas:
         print("  ptxas: " + ln)
+    # what the product kernels compiled to: the warpgroup s8 MMA (IGMMA,
+    # never saturating) fed by TMA tensor loads (UTMALDG) on mbarriers
+    sass = sass_census(_cuda.lib_path) if DEV == "cuda" else None
+    for name, ops in (sass or {}).items():
+        mma = [op for op in ops if op.startswith("IGMMA")]
+        if (not mma or any("SAT" in op or ".S8.S8" not in op for op in mma)
+                or not any(op.startswith("UTMALDG") for op in ops)):
+            raise AssertionError(f"{name}: unexpected SASS {ops}")
+    if sass is not None and len(sass) != 5:
+        raise AssertionError(f"expected 5 product kernels: {sass}")
     emit("build", card=ctx["card"], kind=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda,
          nvcc_s=_cuda.build_seconds, load_s=round(wall, 3),
-         sources=[s.split("spasm_tpu_torch/")[-1] for s in _cuda.sources()])
+         sources=[s.split("spasm_tpu_torch/")[-1] for s in _cuda.sources()],
+         sass=sass)
+
+
+def k1_operands(f, n, k, m, rng, views: bool = False):
+    """Balanced int32 operands on the card, the extremes of the balanced
+    range included; with ``views`` a is a column window of a wider matrix
+    (row stride > k, start not 16-byte aligned) and b a transposed view
+    (column stride != 1)."""
+    a = f.rand((n, k + 7 if views else k), rng).astype(np.int32)
+    b = f.rand((m, k) if views else (k, m), rng).astype(np.int32)
+    half = (f.p - 1) // 2
+    a[0, 3:5] = (half, -half) if k > 1 else half
+    b[0, :2] = (half, -half) if min(b.shape) > 1 else -half
+    a, b = torch.from_numpy(a).to(DEV), torch.from_numpy(b).to(DEV)
+    if views:
+        a, b = a[:, 3:3 + k], b.T
+    return a, b
+
+
+def k1_split_check(f, a, b) -> dict:
+    """The split kernel against pack_planes_plain on both operands, byte
+    for byte; returns the packed planes."""
+    from spasm_tpu_torch._host.field import num_limbs
+    from spasm_tpu_torch.ops import cuda_matmul as cm
+
+    nl = num_limbs(f.p)
+    (n, k), m = a.shape, b.shape[1]
+    np_, kp, mp = cm.padded(n, k, m, nl)
+    ap = cm.split_cuda(a, nl, np_, kp)
+    bp = cm.split_cuda(b, nl, mp, kp, transpose=True)
+    want_a = cm.pack_planes_plain(f, a, nl, np_, kp)
+    want_b = cm.pack_planes_plain(f, b, nl, mp, kp, transpose=True)
+    sync()
+    return dict(ap=ap, bp=bp, err=max(max_abs_diff(ap, want_a),
+                                      max_abs_diff(bp, want_b)))
 
 
 def phase_k1(ctx):
     from spasm_tpu_torch import field
     from spasm_tpu_torch._host.field import num_limbs
-    from spasm_tpu_torch.ops import cuda_matmul
+    from spasm_tpu_torch.ops import cuda_matmul as cm
     from spasm_tpu_torch.ops.matmul import modmatmul_plain
 
+    for nl in range(1, 6):
+        want = (cm.BM, cm.BN[nl], cm.BK, cm.fold_interval(nl))
+        if DEV == "cuda" and cm.tiles(nl) != want:
+            raise AssertionError(f"K1 tiles at {nl} limbs: the library "
+                                 f"says {cm.tiles(nl)}, the wrapper {want}")
     rng = np.random.default_rng(11)
-    worst = 0
-    for i, (n, k, m, p) in enumerate(K1_CASES):
+    worst = worst_split = 0
+    cases = ([c + (False,) for c in K1_TIMED + K1_CASES]
+             + [(130, 260, 140, p, True) for p in K2_PRIMES])
+    for i, (n, k, m, p, views) in enumerate(cases):
         f = field(p)
-        a = torch.from_numpy(f.rand((n, k), rng).astype(np.int32)).to(DEV)
-        b = torch.from_numpy(f.rand((k, m), rng).astype(np.int32)).to(DEV)
-        got = cuda_matmul.modmatmul_cuda(f, a, b)
+        nl = num_limbs(p)
+        a, b = k1_operands(f, n, k, m, rng, views)
+        sp = k1_split_check(f, a, b)
+        ap, bp = sp["ap"], sp["bp"]
         want = modmatmul_plain(f, a, b)
+        err = max(max_abs_diff(cm.modmatmul_cuda(f, a, b), want),
+                  max_abs_diff(cm.product_cuda(f, ap, bp, n, m), want))
         sync()
-        err = max_abs_diff(got, want)
-        worst = max(worst, err)
-        rec = dict(shape=[n, k, m], p=p, max_abs_err=err)
-        if i == 0:
-            # the two are timed in turns: kernel, plain, plain, kernel
-            t = [time_ms(lambda: cuda_matmul.modmatmul_cuda(f, a, b), 5),
-                 time_ms(lambda: modmatmul_plain(f, a, b), 3),
-                 time_ms(lambda: modmatmul_plain(f, a, b), 3),
-                 time_ms(lambda: cuda_matmul.modmatmul_cuda(f, a, b), 5)]
+        worst, worst_split = max(worst, err), max(worst_split, sp["err"])
+        rec = dict(shape=[n, k, m], p=p, limbs=nl, views=views,
+                   folds=((ap.shape[2] // cm.BK - 1)
+                          // (cm.fold_interval(nl) // cm.BK)),
+                   split_max_abs_err=sp["err"], max_abs_err=err)
+        if i < len(K1_TIMED):
+            def wrapper():
+                return cm.modmatmul_cuda(f, a, b)
+
+            def plain():
+                return modmatmul_plain(f, a, b)
+
+            def split():
+                cm.split_cuda(a, nl, ap.shape[1], ap.shape[2])
+                cm.split_cuda(b, nl, bp.shape[1], bp.shape[2], transpose=True)
+
+            def split_plain():
+                cm.pack_planes_plain(f, a, nl, ap.shape[1], ap.shape[2])
+                cm.pack_planes_plain(f, b, nl, bp.shape[1], bp.shape[2],
+                                     transpose=True)
+
+            def product():
+                return cm.product_cuda(f, ap, bp, n, m)
+
+            # timed in turns: kernel, plain, plain, kernel
+            t = [time_ms(wrapper, 10), time_ms(plain, 2), time_ms(plain, 2),
+                 time_ms(wrapper, 10)]
+            ts = [time_ms(split, 10), time_ms(split_plain, 2),
+                  time_ms(split_plain, 2), time_ms(split, 10)]
+            tp = [time_ms(product, 10), time_ms(product, 10)]
             rec.update(ms=min(t[0], t[3]), plain_ms=min(t[1], t[2]),
-                       ms_runs=t)
+                       split_ms=min(ts[0], ts[3]),
+                       split_plain_ms=min(ts[1], ts[2]),
+                       product_ms=min(tp),
+                       ms_runs=t + ts + tp)
             modp_ops = 2.0 * n * k * m
             rec["modp_tops"] = modp_ops / (rec["ms"] * 1e-3) / 1e12
             # the kernel's method: nl**2 int8 plane products on the
             # tensor cores; each operand read once, C written once
-            nl = num_limbs(p)
             rec["bound_ms"], rec["bound_by"] = bound(
                 4.0 * (n * k + k * m + n * m), nl * nl * modp_ops,
                 INT8_OPS_S)
+            # the split: the int32 operands read, the padded planes written
+            rec["split_bound_ms"], _ = bound(
+                4.0 * (n * k + k * m) + ap.numel() + bp.numel(), 0,
+                ALU_OPS_S)
+            rec["int8_share"] = rec["bound_ms"] / rec["product_ms"]
+        if i == 0:
             # yardstick, not the same function: torch._int_mm of one int8
             # limb plane, times nl**2 (the port never calls it)
             a8 = torch.randint(-128, 128, (n, k), dtype=torch.int8,
@@ -213,11 +357,17 @@ def phase_k1(ctx):
             del a8, b8
             ctx["k1_time"] = (rec["ms"], rec["plain_ms"], rec["bound_ms"],
                               rec["bound_by"], rec["library_ms"])
+            ctx["k1_extra"] = dict(split_ms=rec["split_ms"],
+                                   product_ms=rec["product_ms"])
+            ctx["k1s_time"] = (rec["split_ms"], rec["split_plain_ms"],
+                               rec["split_bound_ms"], "bytes", None)
         emit("k1", **rec)
-        if err:
+        if err or sp["err"]:
             raise AssertionError(f"K1 differs from plain at {rec}")
-        del a, b, got, want
-    ctx["k1_err"] = worst
+        if k >= 30_000 and not rec["folds"]:
+            raise AssertionError(f"no fold inside the k loop at {rec}")
+        del a, b, ap, bp, sp, want
+    ctx["k1_err"], ctx["k1s_err"] = worst, worst_split
 
 
 def make_panel(f, n, c, rng, kind: str = "full"):
@@ -525,6 +675,15 @@ def profile_rank(A, out_dir: str) -> None:
     top = sorted(kernels, key=dev_us, reverse=True)[:15]
     emit("profile", wall_s=round(wall, 4), device_busy_s=round(busy_s, 4),
          busy_share=round(busy_s / wall, 4),
+         kernel_launches=sum(e.count for e in kernels),
+         elementwise_launches=sum(e.count for e in kernels
+                                  if "elementwise" in e.key),
+         # the port's own kernels, by their function names
+         own={nm: dict(calls=sum(e.count for e in kernels if nm in e.key),
+                       device_ms=round(sum(dev_us(e) for e in kernels
+                                           if nm in e.key) / 1e3, 3))
+              for nm in ("modmatmul_kernel", "split_rows_kernel",
+                         "split_transpose_kernel", "panel_cluster_kernel")},
          top=[dict(name=e.key[:90], calls=e.count,
                    device_ms=round(dev_us(e) / 1e3, 3)) for e in top])
     os.makedirs(out_dir, exist_ok=True)
@@ -542,13 +701,14 @@ def phase_e2e(ctx):
     if A.nnz != FLAGSHIP_NNZ:
         raise AssertionError(f"flagship nnz {A.nnz} != {FLAGSHIP_NNZ}")
     # the main path's launch counts: reset right before, read right after
-    cuda_matmul.launches = 0
+    cuda_matmul.launches = cuda_matmul.split_launches = 0
     cuda_panel.launches = 0
     t0 = time.perf_counter()
     r = rank(A, device=DEV)
     sync()
     first = time.perf_counter() - t0
     ctx["launches"] = {"modmatmul": cuda_matmul.launches,
+                       "modmatmul_split": cuda_matmul.split_launches,
                        "panel": cuda_panel.launches}
     r2, walls, stats = timed_rank(A, reps=2)
     emit("e2e", case=f"flagship {N}x{N} d=0.02 p=42013 seed 5", nnz=A.nnz,
@@ -739,13 +899,14 @@ def phase_sparse(ctx):
         for opt in (0, 1):
             # the main path's launch counts: reset right before, read
             # right after
-            cuda_matmul.launches = cuda_panel.launches = 0
-            cuda_merge.launches = 0
+            cuda_matmul.launches = cuda_matmul.split_launches = 0
+            cuda_panel.launches = cuda_merge.launches = 0
             t0 = time.perf_counter()
             r = rank(A, device=DEV, device_sparse_min_nnz=opt)
             sync()
             wall = time.perf_counter() - t0
             counts = {"modmatmul": cuda_matmul.launches,
+                      "modmatmul_split": cuda_matmul.split_launches,
                       "panel": cuda_panel.launches,
                       "merge": cuda_merge.launches}
             ranks[opt] = r
@@ -753,7 +914,8 @@ def phase_sparse(ctx):
                  rank=r, expected=want, wall_s=round(wall, 4),
                  phases=last_phase_stats(), launches=counts)
             if opt and DEV == "cuda":
-                need = ("merge",) if want else ("merge", "modmatmul", "panel")
+                need = ("merge",) if want else (
+                    "merge", "modmatmul", "modmatmul_split", "panel")
                 if not all(counts[k] for k in need):
                     raise AssertionError(f"{name}: a kernel of the path was "
                                          f"not launched: {counts}")
@@ -810,8 +972,11 @@ def main(argv=None) -> int:
     kernels = []
     launches = ctx.get("launches", {})
     for name, src, rep, tkey, ekey in (
-            ("modmatmul", "spasm_tpu_torch/csrc/modmatmul.cu",
+            ("modmatmul", "spasm_tpu_torch/csrc/modmatmul_product.cuh",
              "spasm_tpu/ops/pallas_matmul.py:125", "k1_time", "k1_err"),
+            # the limb split the TPU wrapper does in jnp before its kernel
+            ("modmatmul_split", "spasm_tpu_torch/csrc/modmatmul.cu",
+             "spasm_tpu/ops/pallas_matmul.py:218", "k1s_time", "k1s_err"),
             ("panel", "spasm_tpu_torch/csrc/panel.cu",
              "spasm_tpu/ops/pallas_panel.py:167", "k2_time", "k2_err"),
             ("merge", "spasm_tpu_torch/csrc/merge.cu",
@@ -825,6 +990,9 @@ def main(argv=None) -> int:
                             max_abs_err=ctx[ekey], ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=library_ms))
+        if name == "modmatmul":
+            # ms is the wrapper call (both splits and the product)
+            kernels[-1].update(ctx.get("k1_extra", {}))
     print(f"[done] phases={','.join(p for p in PHASES if p in phases)} "
           f"wall_s={time.perf_counter() - t_all:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

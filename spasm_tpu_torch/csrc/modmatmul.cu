@@ -1,266 +1,225 @@
-// K1: exact dense matrix product over GF(p) on int8 tensor cores.
+// K1: exact dense matrix product over GF(p) on the H100's int8 tensor cores.
 //
 // Replaces spasm_tpu/ops/pallas_matmul.py::_kernel (launched by _pallas_mm,
-// wrapped by modmatmul_pallas).  C = A @ B mod p for balanced int32 A (n, k)
-// and B (k, m), given as nl balanced base-256 int8 limb planes each
-// (spasm_tpu_torch/ops/modmul.to_limbs, packed and zero-padded by the
-// wrapper in ops/cuda_matmul.py):
+// wrapped by modmatmul_pallas, which splits the limbs in jnp before the
+// kernel).  C = A @ B mod p for balanced int32 A (n, k) and B (k, m), exact
+// for every legal p <= 0xFFFFFFFB and any k.  With nl balanced base-256
+// limbs x = sum_i x_i 256**i, x_i in [-128, 127],
 //
 //     A @ B = sum_s D_s * 256**s,   D_s = sum_{i+j=s} A_i @ B_j.
 //
-// Each CTA keeps one int32 wmma accumulator per limb diagonal D_s for its
-// output tile.  |D_s| grows by at most nl * 128 * 128 per k step, so the
-// accumulators are flushed into a running balanced total
-// (tot = tot + (D_s mod p) * (256**s mod p), reduced exactly in int64)
-// before they could pass 2**31; any k is exact, and every legal
-// p <= 0xFFFFFFFB is covered (nl = 1..5).
+// Two kinds of kernel, and the wrapper (ops/cuda_matmul.py) launches
+// nothing else:
 //
-// What bounds it on the H100: int8 tensor-core issue (nl*nl mma per
-// 16x16x16 fragment step, 4 at the default p = 42013) and, at this tile
-// size, the synchronous shared-memory staging that feeds wmma.  The design
-// keeps operands at one byte per limb, reads each tile of A and B from
-// device memory once per CTA, and does the modular epilogue once per output
-// element.  Register pressure grows with the 2nl-1 accumulators, so the
-// warp tile shrinks with nl.  A cp.async / TMA pipeline and wgmma are later
-// work.
+// 1. The split kernels read an int32 operand through its strides and write
+//    its nl int8 limb planes, zero-padded to the product's tile multiples,
+//    K-major: A as (nl, np, kp), B transposed through a shared-memory tile
+//    to (nl, mp, kp), so that both the int32 reads and the int8 writes are
+//    coalesced.  wgmma reads 8-bit operands K-major only.  One launch per
+//    operand; bytes-bound (4 bytes in, nl out per element).
+//
+// 2. The product kernel (modmatmul_product.cuh; its instantiations are
+//    compiled by modmatmul_lo.cu and modmatmul_hi.cu).  A CTA owns a 128 x
+//    BN tile of C: two consumer warpgroups of 64 rows each, and a producer
+//    warpgroup that gives its registers away (setmaxnreg).  One producer
+//    thread keeps a ring of shared-memory stages full by TMA
+//    (cp.async.bulk.tensor completing on the stage's mbarrier), each stage
+//    holding the 128 x 128 bytes of every A plane and the BN x 128 bytes of
+//    every B plane for one k step of 128, in the 128-byte swizzle the wgmma
+//    descriptor names.  (The same ring filled by 16-byte cp.async from the
+//    128 producer threads was 1.5x slower at 4096^3 and is not kept.)  The
+//    consumers wait on a stage's "full" mbarrier, start nl*nl*4
+//    wgmma.mma_async m64nBNk32 s8 x s8 -> s32 (no .satfinite) into 2nl-1
+//    register accumulators, one per limb diagonal, keep one stage's group
+//    in flight while they start the next, and release the stage through
+//    its "empty" mbarrier.
+//
+//    The accumulators are all the registers can hold (3 x 64 at nl = 2),
+//    so there is no running total in registers: |D_s| grows by at most
+//    nl * 128 * 128 per unit of k, and before it could pass 2**31 (every
+//    kflush of k) the diagonals are folded mod p into C itself, each
+//    thread reading back and rewriting its own elements; the last fold is
+//    the epilogue: C = C + sum_s (D_s mod p) * (256**s mod p), exact in
+//    int64 (modp.cuh).  Up to two limbs the whole weighted sum fits 2**48
+//    and takes one reduction without a conversion instruction, because at
+//    the main path's k of 128 .. 1000 the epilogue is a large part of a
+//    CTA's time.  Nothing but wgmma writes an accumulator (they are
+//    cleared through the instruction's scale-d), or ptxas serializes the
+//    wgmma groups.  No main-path call is long enough for a fold before the
+//    end.
+//
+// What bounds it on this card: nl*nl int8 plane products on the tensor
+// cores (operations), 4 at the default p = 42013; the bytes of A, B and C
+// are 20x below that at 4096^3.  What the kernel reaches is 0.7 of the
+// int8 peak at 4096^3: each k stage of a 128 x 128 tile asks the L2 for 64
+// KB per 8.4 M multiply-adds, about 7 TB/s over the card at the peak rate.
+// BN shrinks with nl (128, 128, 64, 32, 32) so that the 2nl-1 accumulators
+// of BN/2 registers stay in the register file without spills.
 
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include "modp.cuh"
+#include "modmatmul_product.cuh"
 
-using namespace nvcuda;
+using namespace spasm_k1;
 
 namespace {
 
-constexpr int kBK = 32;       // k per shared-memory stage
-constexpr int kWarps = 8;     // 2 warps along M x 4 along N
-constexpr int kMaxDiag = 9;   // 2 * 5 - 1
+// ---------------------------------------------------------- the split
 
-struct Weights {
-    long long w[kMaxDiag];    // 256**s mod p, balanced
-};
-
-// warp tile (WM x WN fragments of 16x16) per limb count: the 2nl-1
-// accumulators plus the running total stay near 128 registers a thread
-// (ptxas on sm_90a: 2x4 at nl = 1 spilled 64 bytes; 2x2 at nl = 2 spills 8)
-template <int NL> struct Tile;
-template <> struct Tile<1> { static constexpr int WM = 2, WN = 2; };
-template <> struct Tile<2> { static constexpr int WM = 2, WN = 2; };
-template <> struct Tile<3> { static constexpr int WM = 1, WN = 2; };
-template <> struct Tile<4> { static constexpr int WM = 1, WN = 2; };
-template <> struct Tile<5> { static constexpr int WM = 1, WN = 1; };
-
-template <int NL>
-struct Shape {
-    static constexpr int WM = Tile<NL>::WM, WN = Tile<NL>::WN;
-    static constexpr int BM = 2 * WM * 16;
-    static constexpr int BN = 4 * WN * 16;
-};
-
-using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, int>;
-
-template <int ND, int WM, int WN>
-__device__ __forceinline__ void flush(AccFrag (&acc)[ND][WM][WN],
-                                      AccFrag (&tot)[WM][WN],
-                                      const Weights& W, long long p,
-                                      double dinv) {
-    // the element <-> register mapping is the same for every accumulator
-    // fragment of one type, so the combine runs register by register
+// Limb i of the four values, one byte each (the two's-complement byte of a
+// balanced limb is the low byte itself); then the carry step of
+// spasm_tpu_torch/ops/modmul.to_limbs: v' = (v >> 8) + (low >> 7), exact
+// at the int32 extremes.
+__device__ __forceinline__ uint32_t limb_word(int (&v)[4]) {
+    uint32_t word = 0;
 #pragma unroll
-    for (int a = 0; a < WM; ++a)
-#pragma unroll
-        for (int b = 0; b < WN; ++b)
-#pragma unroll
-            for (int t = 0; t < tot[a][b].num_elements; ++t) {
-                long long s = tot[a][b].x[t];
-#pragma unroll
-                for (int d = 0; d < ND; ++d) {
-                    long long r = bal_reduce(acc[d][a][b].x[t], p, dinv);
-                    s = bal_reduce(s + r * W.w[d], p, dinv);
-                    acc[d][a][b].x[t] = 0;
-                }
-                tot[a][b].x[t] = static_cast<int>(s);
-            }
+    for (int e = 0; e < 4; ++e) {
+        const int low = v[e] & 255;
+        word |= static_cast<uint32_t>(low) << (8 * e);
+        v[e] = (v[e] >> 8) + (low >> 7);
+    }
+    return word;
 }
 
-// A: (NL, np, kp) int8 planes, row-major; B: (NL, kp, mp) int8 planes,
-// row-major; C: (n, m) int32.  np, kp, mp are multiples of BM, kBK, BN.
-template <int NL>
-__global__ void __launch_bounds__(kWarps * 32)
-modmatmul_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B,
-                 int32_t* __restrict__ C, int n, int m, int kp, int np_,
-                 int mp, long long p, double dinv, Weights W, int kflush) {
-    constexpr int ND = 2 * NL - 1;
-    constexpr int WM = Shape<NL>::WM, WN = Shape<NL>::WN;
-    constexpr int BM = Shape<NL>::BM, BN = Shape<NL>::BN;
-    // 16x16 int8 sub-tiles stored contiguously (ldm 16): every wmma load
-    // pointer is 256-byte aligned
-    __shared__ __align__(128) int8_t As[NL][kBK / 16][BM][16];
-    __shared__ __align__(128) int8_t Bs[NL][BN / 16][kBK][16];
-    __shared__ __align__(128) int32_t Cs[kWarps][16][16];
-
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5, lane = tid & 31;
-    const int wr = warp >> 2, wc = warp & 3;
-    // row tiles on x (2**31 - 1 blocks): the tall operands of the dense
-    // finish (the accumulated RREF) have far more rows than columns
-    const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
-    const size_t a_plane = static_cast<size_t>(np_) * kp;
-    const size_t b_plane = static_cast<size_t>(kp) * mp;
-
-    AccFrag acc[ND][WM][WN];
-    AccFrag tot[WM][WN];
+// x: (r, c) int32 with element strides (sr, sc); out: (nl, rows, cols)
+// int8, rows % 8 == 0, cols % 128 == 0, zero outside (r, c).  A thread
+// takes four neighbouring columns of one row.
+__global__ void __launch_bounds__(256)
+split_rows_kernel(const int32_t* __restrict__ x, long long sr, long long sc,
+                  int r, int c, int8_t* __restrict__ out, int rows, int cols,
+                  int nl) {
+    const int row = blockIdx.x * 8 + threadIdx.y;
+    const int col = (blockIdx.y * 32 + threadIdx.x) * 4;
+    if (row >= rows || col >= cols) return;
+    int v[4] = {0, 0, 0, 0};
+    if (row < r && col < c) {
+        const int32_t* src = x + row * sr + col * sc;
+        if (sc == 1 && col + 3 < c
+            && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+            const int4 q = __ldg(reinterpret_cast<const int4*>(src));
+            v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+        } else {
 #pragma unroll
-    for (int a = 0; a < WM; ++a)
-#pragma unroll
-        for (int b = 0; b < WN; ++b) {
-            wmma::fill_fragment(tot[a][b], 0);
-#pragma unroll
-            for (int d = 0; d < ND; ++d) wmma::fill_fragment(acc[d][a][b], 0);
-        }
-
-    int since_flush = 0;
-    for (int k0 = 0; k0 < kp; k0 += kBK) {
-        // stage the A and B tiles of every limb plane, 16 bytes a thread
-        constexpr int a_chunks = NL * BM * (kBK / 16);
-        for (int q = tid; q < a_chunks; q += kWarps * 32) {
-            const int plane = q / (BM * (kBK / 16));
-            const int rem = q % (BM * (kBK / 16));
-            const int r = rem >> 1, h = rem & 1;
-            const int4* src = reinterpret_cast<const int4*>(
-                A + plane * a_plane + static_cast<size_t>(row0 + r) * kp
-                + k0 + h * 16);
-            *reinterpret_cast<int4*>(&As[plane][h][r][0]) = __ldg(src);
-        }
-        constexpr int b_chunks = NL * kBK * (BN / 16);
-        for (int q = tid; q < b_chunks; q += kWarps * 32) {
-            const int plane = q / (kBK * (BN / 16));
-            const int rem = q % (kBK * (BN / 16));
-            const int r = rem / (BN / 16), cb = rem % (BN / 16);
-            const int4* src = reinterpret_cast<const int4*>(
-                B + plane * b_plane + static_cast<size_t>(k0 + r) * mp
-                + col0 + cb * 16);
-            *reinterpret_cast<int4*>(&Bs[plane][cb][r][0]) = __ldg(src);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < kBK / 16; ++kk) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char,
-                           wmma::row_major> fa[NL][WM];
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char,
-                           wmma::row_major> fb[NL][WN];
-#pragma unroll
-            for (int i = 0; i < NL; ++i) {
-#pragma unroll
-                for (int a = 0; a < WM; ++a)
-                    wmma::load_matrix_sync(
-                        fa[i][a],
-                        reinterpret_cast<const signed char*>(
-                            &As[i][kk][(wr * WM + a) * 16][0]), 16);
-#pragma unroll
-                for (int b = 0; b < WN; ++b)
-                    wmma::load_matrix_sync(
-                        fb[i][b],
-                        reinterpret_cast<const signed char*>(
-                            &Bs[i][wc * WN + b][kk * 16][0]), 16);
-            }
-#pragma unroll
-            for (int i = 0; i < NL; ++i)
-#pragma unroll
-                for (int j = 0; j < NL; ++j)
-#pragma unroll
-                    for (int a = 0; a < WM; ++a)
-#pragma unroll
-                        for (int b = 0; b < WN; ++b)
-                            wmma::mma_sync(acc[i + j][a][b], fa[i][a],
-                                           fb[j][b], acc[i + j][a][b]);
-        }
-        __syncthreads();
-        since_flush += kBK;
-        if (since_flush >= kflush && k0 + kBK < kp) {
-            flush<ND, WM, WN>(acc, tot, W, p, dinv);
-            since_flush = 0;
+            for (int e = 0; e < 4; ++e)
+                if (col + e < c) v[e] = __ldg(src + e * sc);
         }
     }
-    flush<ND, WM, WN>(acc, tot, W, p, dinv);
-
-    // write back through a per-warp staging tile, masking the ragged edge
-#pragma unroll
-    for (int a = 0; a < WM; ++a)
-#pragma unroll
-        for (int b = 0; b < WN; ++b) {
-            wmma::store_matrix_sync(&Cs[warp][0][0], tot[a][b], 16,
-                                    wmma::mem_row_major);
-            __syncwarp();
-            const int r0 = row0 + (wr * WM + a) * 16;
-            const int c0 = col0 + (wc * WN + b) * 16;
-            for (int e = lane; e < 256; e += 32) {
-                const int r = r0 + (e >> 4), c = c0 + (e & 15);
-                if (r < n && c < m)
-                    C[static_cast<size_t>(r) * m + c] = Cs[warp][e >> 4][e & 15];
-            }
-            __syncwarp();
-        }
+    uint32_t* dst = reinterpret_cast<uint32_t*>(
+        out + static_cast<size_t>(row) * cols + col);
+    const size_t plane = static_cast<size_t>(rows) * cols / 4;
+    for (int i = 0; i < nl; ++i) dst[i * plane] = limb_word(v);
 }
 
-template <int NL>
-cudaError_t launch(const int8_t* A, const int8_t* B, int32_t* C, int n,
-                   int m, int kp, int np_, int mp, long long p,
-                   const Weights& W, cudaStream_t stream) {
-    constexpr int BM = Shape<NL>::BM, BN = Shape<NL>::BN;
-    if (np_ % BM || mp % BN || kp % kBK || n > np_ || m > mp
-        || mp / BN > 65535)
-        return cudaErrorInvalidValue;
-    // largest k a flush interval may span: nl * 128 * 128 * k < 2**31
-    int kflush = static_cast<int>(((1LL << 31) - 1) / (NL * 16384LL));
-    kflush -= kflush % kBK;
-    dim3 grid(np_ / BM, mp / BN);
-    modmatmul_kernel<NL><<<grid, kWarps * 32, 0, stream>>>(
-        A, B, C, n, m, kp, np_, mp, p, 1.0 / static_cast<double>(p), W,
-        kflush);
-    return cudaGetLastError();
+// x: (k, m) int32 with element strides (sr, sc); out: (nl, mp, kp) int8,
+// the planes of x transposed, mp % 32 == 0, kp % 128 == 0, zero outside
+// (m, k).  A CTA takes 128 k x 32 m: a warp reads 32 neighbouring m of one
+// k row, the bytes go through shared memory, and a warp writes the 128
+// neighbouring k bytes of one m row.
+__global__ void __launch_bounds__(256)
+split_transpose_kernel(const int32_t* __restrict__ x, long long sr,
+                       long long sc, int k, int m, int8_t* __restrict__ out,
+                       int mp, int kp, int nl) {
+    // [limb][m][k word]; 33 words a row keep both phases free of bank
+    // conflicts
+    __shared__ uint32_t tile[5][32][33];
+    uint8_t* bytes = reinterpret_cast<uint8_t*>(tile);
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    const int m0 = blockIdx.x * 32, k0 = blockIdx.y * 128;
+    const int mc = m0 + tx;
+    for (int kk = ty; kk < 128; kk += 8) {
+        const int kr = k0 + kk;
+        int v = (kr < k && mc < m) ? __ldg(x + kr * sr + mc * sc) : 0;
+        for (int i = 0; i < nl; ++i) {
+            const int low = v & 255;
+            bytes[(i * 32 + tx) * 132 + kk] = static_cast<uint8_t>(low);
+            v = (v >> 8) + (low >> 7);
+        }
+    }
+    __syncthreads();
+    uint32_t* dst = reinterpret_cast<uint32_t*>(out);
+    for (int q = ty; q < nl * 32; q += 8) {
+        const int i = q >> 5, ml = q & 31;
+        const size_t at = (static_cast<size_t>(i) * mp + m0 + ml) * kp + k0;
+        dst[at / 4 + tx] = tile[i][ml][tx];
+    }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Tile sizes the wrapper pads to: out = {BM, BN, BK}.
+// out = {BM, BN, BK, kflush}: the multiples the planes are padded to, and
+// the k between two folds of the accumulators.
 int spasm_modmatmul_tiles(int nl, int* out) {
     switch (nl) {
-        case 1: out[0] = Shape<1>::BM; out[1] = Shape<1>::BN; break;
-        case 2: out[0] = Shape<2>::BM; out[1] = Shape<2>::BN; break;
-        case 3: out[0] = Shape<3>::BM; out[1] = Shape<3>::BN; break;
-        case 4: out[0] = Shape<4>::BM; out[1] = Shape<4>::BN; break;
-        case 5: out[0] = Shape<5>::BM; out[1] = Shape<5>::BN; break;
+        case 1: out[1] = Shape<1>::BN; out[3] = Shape<1>::KFLUSH; break;
+        case 2: out[1] = Shape<2>::BN; out[3] = Shape<2>::KFLUSH; break;
+        case 3: out[1] = Shape<3>::BN; out[3] = Shape<3>::KFLUSH; break;
+        case 4: out[1] = Shape<4>::BN; out[3] = Shape<4>::KFLUSH; break;
+        case 5: out[1] = Shape<5>::BN; out[3] = Shape<5>::KFLUSH; break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
+    out[0] = kBM;
     out[2] = kBK;
     return 0;
 }
 
+// The limb planes of x (r, c), element strides (sr, sc), into out:
+// (nl, rows, cols) as they are, or with transpose != 0 (nl, rows, cols)
+// holding x transposed (rows pad c, cols pad r).
+int spasm_modmatmul_split(const void* x, long long sr, long long sc, int r,
+                          int c, void* out, int rows, int cols, int nl,
+                          int transpose, void* stream) {
+    if (nl < 1 || nl > 5 || r <= 0 || c <= 0 || cols % kBK || rows % 32)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int32_t* src = static_cast<const int32_t*>(x);
+    int8_t* dst = static_cast<int8_t*>(out);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (cols / kBK > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    if (transpose) {
+        if (c > rows || r > cols)
+            return static_cast<int>(cudaErrorInvalidValue);
+        split_transpose_kernel<<<dim3(rows / 32, cols / kBK), dim3(32, 8), 0,
+                                 st>>>(src, sr, sc, r, c, dst, rows, cols,
+                                       nl);
+    } else {
+        if (r > rows || c > cols)
+            return static_cast<int>(cudaErrorInvalidValue);
+        split_rows_kernel<<<dim3(rows / 8, cols / kBK), dim3(32, 8), 0, st>>>(
+            src, sr, sc, r, c, dst, rows, cols, nl);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// C = A @ B mod p from the packed planes (see modmatmul_kernel).
 int spasm_modmatmul(const void* A, const void* B, void* C, int n, int m,
                     int kp, int np_, int mp, int nl, long long p,
                     const void* weights, void* stream) {
-    Weights W{};
+    if (nl < 1 || nl > 5) return static_cast<int>(cudaErrorInvalidValue);
+    Product a{static_cast<const int8_t*>(A), static_cast<const int8_t*>(B),
+              static_cast<int32_t*>(C), n, m, kp, np_, mp, p, Weights{},
+              static_cast<cudaStream_t>(stream)};
     const long long* w = static_cast<const long long*>(weights);
-    for (int s = 0; s < 2 * nl - 1 && s < kMaxDiag; ++s) W.w[s] = w[s];
-    const int8_t* a = static_cast<const int8_t*>(A);
-    const int8_t* b = static_cast<const int8_t*>(B);
-    int32_t* c = static_cast<int32_t*>(C);
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    cudaError_t e;
-    switch (nl) {
-        case 1: e = launch<1>(a, b, c, n, m, kp, np_, mp, p, W, st); break;
-        case 2: e = launch<2>(a, b, c, n, m, kp, np_, mp, p, W, st); break;
-        case 3: e = launch<3>(a, b, c, n, m, kp, np_, mp, p, W, st); break;
-        case 4: e = launch<4>(a, b, c, n, m, kp, np_, mp, p, W, st); break;
-        case 5: e = launch<5>(a, b, c, n, m, kp, np_, mp, p, W, st); break;
-        default: e = cudaErrorInvalidValue;
-    }
-    return static_cast<int>(e);
+    for (int s = 0; s < 2 * nl - 1; ++s) a.W.w[s] = w[s];
+    return static_cast<int>(nl <= 3 ? product_lo(nl, a) : product_hi(nl, a));
+}
+
+// The whole of K1 in one call: both splits, then the product.  a (n, k)
+// and b (k, m) int32 with element strides; ap (nl, np, kp) and bp (nl, mp,
+// kp) int8 scratch; C (n, m) int32.
+int spasm_modmatmul_full(const void* a, long long sa0, long long sa1,
+                         const void* b, long long sb0, long long sb1,
+                         void* ap, void* bp, void* C, int n, int k, int m,
+                         int np_, int kp, int mp, int nl, long long p,
+                         const void* weights, void* stream) {
+    int e = spasm_modmatmul_split(a, sa0, sa1, n, k, ap, np_, kp, nl, 0,
+                                  stream);
+    if (e) return e;
+    e = spasm_modmatmul_split(b, sb0, sb1, k, m, bp, mp, kp, nl, 1, stream);
+    if (e) return e;
+    return spasm_modmatmul(ap, bp, C, n, m, kp, np_, mp, nl, p, weights,
+                           stream);
 }
 
 const char* spasm_cuda_error_string(int e) {

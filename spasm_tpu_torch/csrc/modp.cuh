@@ -19,3 +19,22 @@ __device__ __forceinline__ long long bal_reduce(long long x, long long p,
     else if (r < -half) r += p;
     return r;
 }
+
+// The same residue for |x| < 2**51 and p < 2**31, as an int, without a
+// conversion instruction (the SM's slowest pipe).  Bits 0x4338000000000000
+// + x are the double 1.5 * 2**52 + x, exactly, so one subtraction gives x as
+// a double; one fused multiply-add onto 1.5 * 2**52 rounds x * dinv to the
+// nearest integer q (|x * dinv| < 2**51), whose low word sits in the
+// result's low word; q is within 0.5 + 2**-2 of x / p, so x - q p, computed
+// in 32 bits (it fits), needs one conditional fold.
+__device__ __forceinline__ int bal_reduce_fma(long long x, int p,
+                                              double dinv) {
+    const double d = __longlong_as_double(0x4338000000000000LL + x)
+        - 6755399441055744.0;
+    const int q = __double2loint(fma(d, dinv, 6755399441055744.0));
+    int r = static_cast<int>(x) - q * p;
+    const int half = p >> 1;
+    if (r > half) r -= p;
+    else if (r < -half) r += p;
+    return r;
+}

@@ -33,6 +33,7 @@ _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall of the nvcc run in this process (None: cached)
 build_log = ""        # nvcc's stderr: ptxas registers / spills per kernel
+lib_path = None       # the loaded shared library
 
 
 def _nvcc() -> str:
@@ -61,6 +62,13 @@ def _configure(lib):
     lib.spasm_modmatmul.restype = i32
     lib.spasm_modmatmul.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
                                     i32, i64, vp, vp]
+    lib.spasm_modmatmul_full.restype = i32
+    lib.spasm_modmatmul_full.argtypes = [vp, i64, i64, vp, i64, i64, vp, vp,
+                                         vp, i32, i32, i32, i32, i32, i32,
+                                         i32, i64, vp, vp]
+    lib.spasm_modmatmul_split.restype = i32
+    lib.spasm_modmatmul_split.argtypes = [vp, i64, i64, i32, i32, vp, i32,
+                                          i32, i32, i32, vp]
     lib.spasm_cuda_error_string.restype = ctypes.c_char_p
     lib.spasm_cuda_error_string.argtypes = [i32]
     lib.spasm_panel_eliminate.restype = i32
@@ -75,7 +83,7 @@ def _configure(lib):
 
 def lib():
     """The loaded kernel library, built on first call."""
-    global _lib, build_seconds, build_log
+    global _lib, build_seconds, build_log, lib_path
     with _lock:
         if _lib is not None:
             return _lib
@@ -119,6 +127,7 @@ def lib():
             for obj in objs:
                 os.remove(obj)
         handle = ctypes.CDLL(so)
+        lib_path = so
         _configure(handle)
         _lib = handle
         return _lib
@@ -129,6 +138,15 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         msg = _lib.spasm_cuda_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg}) at launch")
+
+
+def on_device_of(t, call):
+    """call() with t's device current (kernels launch on the current
+    device); the guard is skipped where it already is."""
+    if t.device.index == torch.cuda.current_device():
+        return call()
+    with torch.cuda.device(t.device):
+        return call()
 
 
 def stream_of(t) -> int:

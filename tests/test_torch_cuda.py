@@ -35,19 +35,85 @@ def _rand(f, shape, seed, density=1.0):
     return torch.from_numpy(x)
 
 
-@pytest.mark.parametrize("shape", [(130, 260, 140), (1000, 1000, 1024),
-                                   (1, 5, 3)])
+# the shapes rref_inplace and blocked_finish_step give K1 on the flagship,
+# and n, k, m at 1 and at one past a tile multiple (128, 128, 128 or 32)
+K1_SHAPES = [(130, 260, 140), (1000, 1000, 1024), (1, 5, 3),
+             (1000, 128, 128), (512, 512, 512), (1000, 512, 8192),
+             (1000, 1000, 8192), (1000, 7168, 8192), (7168, 1000, 8192),
+             (1, 1, 1), (129, 260, 140), (130, 129, 140), (130, 260, 129),
+             (130, 260, 33)]
+
+
+@pytest.mark.parametrize("shape", K1_SHAPES)
 @pytest.mark.parametrize("p", PRIMES)
 def test_modmatmul_kernel_matches_plain(p, shape, card):
     f = field(p)
     n, k, m = shape
     a, b = _rand(f, (n, k), 1).to(card), _rand(f, (k, m), 2).to(card)
-    before = cuda_matmul.launches
+    before = cuda_matmul.launches, cuda_matmul.split_launches
     got = matmul.modmatmul(f, a, b)          # dispatches to the kernel
-    assert cuda_matmul.launches == before + 1
+    assert cuda_matmul.launches == before[0] + 1
+    assert cuda_matmul.split_launches == before[1] + 2
     want = matmul.modmatmul_plain(f, a, b)
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("p", PRIMES)
+def test_modmatmul_kernel_strided_views(p, card):
+    # a: a column window of a wider matrix (row stride > k, start not
+    # 16-byte aligned); b: a transposed view (column stride != 1); the
+    # split kernel byte for byte against its plain version, then the
+    # product
+    f = field(p)
+    nl = cuda_matmul.num_limbs(p)
+    n, k, m = 130, 260, 140
+    a = _rand(f, (n, k + 7), 3).to(card)[:, 3:3 + k]
+    b = _rand(f, (m, k), 4).to(card).T
+    assert not a.is_contiguous() and b.stride(1) != 1
+    np_, kp, mp = cuda_matmul.padded(n, k, m, nl)
+    ap = cuda_matmul.split_cuda(a, nl, np_, kp)
+    bp = cuda_matmul.split_cuda(b, nl, mp, kp, transpose=True)
+    assert torch.equal(ap, cuda_matmul.pack_planes_plain(f, a, nl, np_, kp))
+    assert torch.equal(bp, cuda_matmul.pack_planes_plain(f, b, nl, mp, kp,
+                                                         transpose=True))
+    want = matmul.modmatmul_plain(f, a, b)
+    assert torch.equal(cuda_matmul.product_cuda(f, ap, bp, n, m), want)
+    assert torch.equal(cuda_matmul.product_plain(f, ap, bp, n, m), want)
+    assert torch.equal(cuda_matmul.modmatmul_cuda(f, a, b), want)
+
+
+@pytest.mark.parametrize("n,k,m,p", [(40, 140_000, 48, 5),
+                                     (40, 30_000, 48, 4294967291)])
+def test_modmatmul_kernel_folds_inside_long_k(n, k, m, p, card):
+    f = field(p)
+    assert k > cuda_matmul.fold_interval(cuda_matmul.num_limbs(p))
+    a, b = _rand(f, (n, k), 5).to(card), _rand(f, (k, m), 6).to(card)
+    assert torch.equal(cuda_matmul.modmatmul_cuda(f, a, b),
+                       matmul.modmatmul_plain(f, a, b))
+
+
+def test_modmatmul_kernel_rejects_what_it_does_not_take(card):
+    f = field(42013)
+    a = torch.zeros((4, 8), dtype=torch.int32, device=card)
+    b = torch.zeros((8, 3), dtype=torch.int32, device=card)
+    before = cuda_matmul.launches, cuda_matmul.split_launches
+    with pytest.raises(ValueError):
+        cuda_matmul.modmatmul_cuda(f, a.cpu(), b)      # a CPU operand
+    with pytest.raises(ValueError):
+        cuda_matmul.modmatmul_cuda(f, a, b.cpu())
+    with pytest.raises(TypeError):
+        cuda_matmul.modmatmul_cuda(f, a.long(), b)     # not int32
+    with pytest.raises(TypeError):
+        cuda_matmul.modmatmul_cuda(f, a, b.to(torch.int8))
+    with pytest.raises(ValueError):
+        cuda_matmul.modmatmul_cuda(f, a, b[:5])        # inner sizes differ
+    assert (cuda_matmul.launches, cuda_matmul.split_launches) == before
+    # empty products launch nothing either
+    assert cuda_matmul.modmatmul_cuda(f, a[:0], b).shape == (0, 3)
+    z = cuda_matmul.modmatmul_cuda(f, a[:, :0], b[:0])
+    assert z.shape == (4, 3) and not z.any()
+    assert (cuda_matmul.launches, cuda_matmul.split_launches) == before
 
 
 @pytest.mark.parametrize("n,c", [(1000, 128), (300, 37), (4096, 128),

@@ -9,6 +9,7 @@ import torch
 
 from spasm_tpu.field import field, num_limbs
 from spasm_tpu.ops import matmul as ref_matmul
+from spasm_tpu.ops import modmul as ref_modmul
 from spasm_tpu.ops.pallas_matmul import modmatmul_pallas
 
 from spasm_tpu_torch.ops import cuda_matmul
@@ -84,3 +85,115 @@ def test_plain_edge_shapes():
     with pytest.raises(ValueError):
         mm.modmatmul_plain(f, torch.zeros((4, 2), dtype=torch.int32),
                            torch.zeros((3, 3), dtype=torch.int32))
+
+
+# ---- the split and the fold schedule of the CUDA kernels, on the CPU
+
+LIMB_PRIMES = [5, 42013, 92681, 2147483629, 4294967291]   # nl = 1 .. 5
+
+
+def _extremes(f, shape, rng):
+    """f.rand with the ends of the balanced range planted (at p =
+    4294967291 they are the int32 extremes tier-C values reach)."""
+    x = f.rand(shape, rng).astype(np.int32)
+    half = (f.p - 1) // 2
+    x.flat[:4] = (half, -half, half - 1, 0)
+    return x
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+@pytest.mark.parametrize("p", LIMB_PRIMES)
+def test_pack_planes_plain_matches_jax_to_limbs(p, transpose, rng):
+    # plane by plane against the JAX package's to_limbs (tolerance 0), the
+    # padding zero, B transposed; x a strided view
+    f = field(p)
+    nl = num_limbs(p)
+    assert nl == LIMB_PRIMES.index(p) + 1
+    x = _extremes(f, (37, 150), rng)[:, 5:135]            # (37, 130)
+    want = np.moveaxis(np.asarray(ref_modmul.to_limbs(
+        f, jnp.asarray(x, jnp.int32), nl)), -1, 0)        # (nl, 37, 130)
+    if transpose:
+        want = want.transpose(0, 2, 1)
+    rows, cols = (160, 128) if transpose else (128, 256)
+    got = cuda_matmul.pack_planes_plain(f, torch.from_numpy(x), nl, rows,
+                                        cols, transpose).numpy()
+    assert got.dtype == np.int8 and got.shape == (nl, rows, cols)
+    r, c = want.shape[1:]
+    np.testing.assert_array_equal(got[:, :r, :c], want)
+    assert not got[:, r:].any() and not got[:, :, c:].any()
+    # the planes put the operand together again
+    back = sum(got[i, :r, :c].astype(np.int64) * 256 ** i for i in range(nl))
+    np.testing.assert_array_equal(back, x.T if transpose else x)
+
+
+@pytest.mark.parametrize("p", LIMB_PRIMES)
+def test_packed_planes_product_matches_plain_and_jax(p, rng):
+    # sum over the limb diagonals of the packed planes' products, with
+    # limb_weights, against modmatmul_plain and the JAX modmatmul
+    f = field(p)
+    nl = num_limbs(p)
+    n, k, m = 130, 260, 140
+    a, b = _extremes(f, (n, k), rng), _extremes(f, (k, m), rng)
+    np_, kp, mp = cuda_matmul.padded(n, k, m, nl)
+    assert (np_ % cuda_matmul.BM, kp % cuda_matmul.BK,
+            mp % cuda_matmul.BN[nl]) == (0, 0, 0)
+    ap = cuda_matmul.pack_planes_plain(f, torch.from_numpy(a), nl, np_, kp)
+    bp = cuda_matmul.pack_planes_plain(f, torch.from_numpy(b), nl, mp, kp,
+                                       transpose=True)
+    w = [int(x) for x in np.asarray(ref_modmul.limb_weights(f, nl))]
+    A, B = ap.numpy().astype(np.int64), bp.numpy().astype(np.int64)
+    tot = np.zeros((np_, mp), dtype=object)
+    for i in range(nl):
+        for j in range(nl):
+            tot = tot + (A[i] @ B[j].T).astype(object) * w[i + j]
+    got = f.normalize(tot)[:n, :m].astype(np.int64)
+    assert not f.normalize(tot)[n:].any() and not f.normalize(tot)[:, m:].any()
+    np.testing.assert_array_equal(got, _plain(f, a, b).numpy())
+    want = ref_matmul.modmatmul(f, jnp.asarray(a, jnp.int32),
+                                jnp.asarray(b, jnp.int32), force="jnp")
+    np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(
+        cuda_matmul.product_plain(f, ap, bp, n, m).numpy(), got)
+
+
+@pytest.mark.parametrize("n,k,m,p", [(40, 140_000, 48, 5),
+                                     (40, 30_000, 48, 4294967291)])
+def test_fold_schedule_model_long_k(n, k, m, p, rng):
+    # the product kernel's schedule (fold the int32 diagonals into C every
+    # fold_interval of k, last fold at the end) at the two long-k shapes
+    # of chip_smoke.py: at least one fold inside the loop, no diagonal
+    # beyond int32 (product_plain raises), and the plain version's bits
+    f = field(p)
+    nl = num_limbs(p)
+    step = cuda_matmul.fold_interval(nl)
+    assert step % cuda_matmul.BK == 0 and step < k
+    assert nl * 16384 * step < 2 ** 31 <= nl * 16384 * (step + cuda_matmul.BK)
+    a, b = _extremes(f, (n, k), rng), _extremes(f, (k, m), rng)
+    np_, kp, mp = cuda_matmul.padded(n, k, m, nl)
+    ap = cuda_matmul.pack_planes_plain(f, torch.from_numpy(a), nl, np_, kp)
+    bp = cuda_matmul.pack_planes_plain(f, torch.from_numpy(b), nl, mp, kp,
+                                       transpose=True)
+    got = cuda_matmul.product_plain(f, ap, bp, n, m)
+    assert torch.equal(got, _plain(f, a, b))
+
+
+def test_fold_interval_is_the_overflow_bound():
+    # with every limb at -128 a diagonal grows by nl * 128 * 128 per unit
+    # of k: one interval stays inside int32, one more k stage would not
+    for nl in range(1, 6):
+        step = cuda_matmul.fold_interval(nl)
+        ap = torch.full((nl, 128, step), -128, dtype=torch.int8)
+        f = field(LIMB_PRIMES[nl - 1])
+        cuda_matmul.product_plain(f, ap[:, :1], ap[:, :1], 1, 1)
+        assert nl * 16384 * (step + cuda_matmul.BK) >= 2 ** 31
+
+
+def test_cuda_wrappers_raise_off_the_card(rng):
+    f = field(42013)
+    x = torch.zeros((4, 4), dtype=torch.int32)
+    for call in (lambda: cuda_matmul.split_cuda(x, 2, 128, 128),
+                 lambda: cuda_matmul.product_cuda(
+                     f, torch.zeros((2, 128, 128), dtype=torch.int8),
+                     torch.zeros((2, 128, 128), dtype=torch.int8), 4, 4)):
+        with pytest.raises(ValueError):
+            call()
