@@ -25,10 +25,13 @@ Phases, one line each:
            of each phase of a step and a latency bound: the pivot steps
            times the shortest cluster barrier of one step)
   k3       the merge kernel against its plain version, both on the card,
-           bit for bit in all three outputs, at widths 128 .. 65536 (the
-           global-memory variant above 16384), widths that are not powers
-           of two and 2**20, for five primes, and at the tile shapes of
-           d8's two classes; timed at d8's Wt = 272 tile
+           bit for bit in all three outputs, at widths 31 .. 65536 (the
+           edges of its levels: 64, 1024 and 16384; the global-memory
+           variant above 16384), widths that are not powers of two and
+           2**20, for five primes, and at the tile shapes of d8's two
+           classes and random 30k's widest; those three are timed, with
+           torch.sort of the same rows as a yardstick.  The build phase
+           fails on a register spill in K3.
   rref    dense.rref with the transform on the card (panel group 4)
            against the same call on CPU tensors (group 1)
   e2e      rank(A, device="cuda") at real size: the 8192^2 d=0.02 random
@@ -38,8 +41,10 @@ Phases, one line each:
   sparse   the device sparse Schur path (device_sparse_min_nnz): round-0
            pairs of the d7 and d8 boundaries and the random 30k^2 matrix
            through the one-pass merge on the card against the host kernel
-           (CSR-equal, one K3 launch per device call, and K3 bit-equal to
-           the plain merge on every tile of one more run); the ranks of d8 and
+           (CSR-equal, one K3 launch per device call, K3's own time
+           summed over its launches beside the one-pass device_s, and K3
+           bit-equal to the plain merge on every tile of one more run);
+           the ranks of d8 and
            the random matrix with the option on and off, with the launch
            counts; echelonize of d7 with the option, card against CPU
 
@@ -111,16 +116,20 @@ K1_CASES = [
 FLAGSHIP_N, FLAGSHIP_NNZ, PLANTED_KEEP = 8192, 1_343_173, 7168
 K2_PRIMES = (5, 42013, 92681, 2147483629, 4294967291)
 K2_ROWS = (1000, 4096, 8192)
-# K3 comparison widths: powers of two (16384 is the widest row the kernel
-# keeps in shared memory; 65536 takes its global-memory variant), the
-# class widths that are not powers of two, and a wide one; each case holds
-# about K3_SLOTS slots.
-K3_WIDTHS = (128, 512, 2048, 8192, 16384, 65536, 80, 272, 1040, 40000)
+# K3 comparison widths: powers of two, the widths at the edges of the
+# kernel's levels (32 keys a lane from 64 slots on, a row in one warp up to
+# 32 E = 1024 slots, in one CTA up to 16384; 16385 and 65536 take the
+# global-memory variant), the class widths that are not powers of two, and
+# a wide one; each case holds about K3_SLOTS slots.
+K3_WIDTHS = (128, 512, 2048, 8192, 16384, 65536, 80, 272, 1040, 40000,
+             31, 32, 33, 511, 513, 1024, 1025, 2049, 16385)
 K3_SLOTS = 1 << 21
 # the tiles d8's one-pass gives K3, (rows, Wt) of its two classes' chunks,
-# at d8's p and m; the second is timed
+# at d8's p and m, and a tile of random 30k's widest class (Wt 1040); all
+# three are timed, the second is the kernels line's
 K3_D8 = ((735471, 32), (262144, 272))
 K3_D8_PM = (42013, 1562275)
+K3_WIDE = (K3_SLOTS // 1040, 1040)
 # the sparse phase's cases: simplex_boundary(n, k) with its rank, and the
 # random matrix of the JAX package's tools/device_crossover.py
 D7, D8 = (22, 7, 116280), (26, 8, 1081575)
@@ -209,6 +218,23 @@ def sass_census(lib_path: str, mnemonics=("IGMMA", "UTMALDG", "SYNCS")):
     return census
 
 
+def ptxas_spills(log: str, kernel: str) -> dict:
+    """{mangled name: spill store + load bytes} from ``-Xptxas=-v`` output,
+    over the functions whose name holds ``kernel`` (empty when the library
+    came from the cache and nothing was compiled)."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            name = m[1]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and name and kernel in name:
+            out[name] = int(m[1]) + int(m[2])
+    return out
+
+
 def phase_build(ctx):
     from spasm_tpu_torch.ops import _cuda
 
@@ -222,6 +248,11 @@ def phase_build(ctx):
                                       "arning", "wgmma", "setmaxnreg"))]
     for ln in ptxas:
         print("  ptxas: " + ln)
+    # K3 keeps its keys in registers: an array spilled to local memory
+    # would undo the design, so a spill in any of its kernels fails
+    k3_spills = ptxas_spills(_cuda.build_log, "merge_rows_kernel")
+    if any(k3_spills.values()):
+        raise AssertionError(f"K3 spills: {k3_spills}")
     # what the product kernels compiled to: the warpgroup s8 MMA (IGMMA,
     # never saturating) fed by TMA tensor loads (UTMALDG) on mbarriers
     sass = sass_census(_cuda.lib_path) if DEV == "cuda" else None
@@ -236,7 +267,7 @@ def phase_build(ctx):
          torch=torch.__version__, cuda=torch.version.cuda,
          nvcc_s=_cuda.build_seconds, load_s=round(wall, 3),
          sources=[s.split("spasm_tpu_torch/")[-1] for s in _cuda.sources()],
-         sass=sass)
+         sass=sass, k3_spill_bytes=k3_spills)
 
 
 def k1_operands(f, n, k, m, rng, views: bool = False):
@@ -529,6 +560,39 @@ def merge_tile(f, R, W, m, rng, span=None):
             torch.from_numpy(vals.astype(np.int32)).to(DEV))
 
 
+def k3_timed(f, c, v, m) -> dict:
+    """K3, its plain version and the torch.sort yardstick on one tile, in
+    turns (kernel, plain, plain, kernel)."""
+    from spasm_tpu_torch.ops import cuda_merge
+    from spasm_tpu_torch.ops.merge import merge_rows_plain
+
+    R, W = c.shape
+
+    def kernel():
+        return cuda_merge.merge_rows_cuda(f, c, v, m)
+
+    def plain():
+        return merge_rows_plain(f, c, v, m)
+
+    t = [time_ms(kernel, 5), time_ms(plain, 2), time_ms(plain, 2),
+         time_ms(kernel, 5)]
+    rec = dict(ms=min(t[0], t[3]), plain_ms=min(t[1], t[2]), ms_runs=t)
+    # yardstick, not the same function: a library sort of the same rows
+    # by the same composite key (no sum, no flags)
+    key = (c.to(torch.int64) << 32) | (v.to(torch.int64) & 0xFFFFFFFF)
+    rec["sort_ms"] = time_ms(lambda: torch.sort(key, dim=1), 5)
+    del key
+    # one read and one write of every slot: 8 bytes in, 9 out
+    rec["gbps"] = R * W * 17 / (rec["ms"] * 1e-3) / 1e9
+    # the bitonic network on the row padded to Wp: Wp/2 compare-exchanges
+    # in each of L(L+1)/2 stages
+    L = (W - 1).bit_length()
+    rec["bound_ms"], rec["bound_by"] = bound(
+        17.0 * R * W, R * (2 ** L // 2) * L * (L + 1) / 2, ALU_OPS_S)
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    return rec
+
+
 def phase_k3(ctx):
     from spasm_tpu_torch import field
     from spasm_tpu_torch.ops import cuda_merge
@@ -539,14 +603,16 @@ def phase_k3(ctx):
     # bit-equality of cols, vals and keep at every slot
     rng = np.random.default_rng(14)
     names = ("cols", "vals", "keep")
-    # (R, W, p, m, span)
-    cases = [(max(4, K3_SLOTS // W), W, p, max(4, W // 3), None)
+    # (R, W, p, m, span, timed)
+    cases = [(max(4, K3_SLOTS // W), W, p, max(4, W // 3), None, False)
              for W in K3_WIDTHS for p in K2_PRIMES]
-    cases.append((4, 1 << 20, 42013, (1 << 20) // 3, None))
+    cases.append((4, 1 << 20, 42013, (1 << 20) // 3, None, False))
     p8, m8 = K3_D8_PM
-    cases += [(R, W, p8, m8, max(4, W // 3)) for R, W in K3_D8]
+    cases += [(R, W, p8, m8, max(4, W // 3), True) for R, W in K3_D8]
+    cases.append(K3_WIDE + (p8, m8, max(4, K3_WIDE[1] // 3), True))
     worst = 0
-    for i, (R, W, p, m, span) in enumerate(cases):
+    timed = {}
+    for R, W, p, m, span, is_timed in cases:
         f = field(p)
         c, v = merge_tile(f, R, W, m, rng, span)
         got = cuda_merge.merge_rows_cuda(f, c, v, m)
@@ -558,29 +624,19 @@ def phase_k3(ctx):
         rec = dict(R=R, W=W, p=p, m=m, kept=int(want[2].sum()),
                    max_abs_err=err)
         del got, want
-        if i == len(cases) - 1:
-            # d8's Wt = 272 tile, timed in turns: kernel, plain, plain,
-            # kernel
-            t = [time_ms(lambda: cuda_merge.merge_rows_cuda(f, c, v, m), 5),
-                 time_ms(lambda: merge_rows_plain(f, c, v, m), 2),
-                 time_ms(lambda: merge_rows_plain(f, c, v, m), 2),
-                 time_ms(lambda: cuda_merge.merge_rows_cuda(f, c, v, m), 5)]
-            rec.update(ms=min(t[0], t[3]), plain_ms=min(t[1], t[2]),
-                       ms_runs=t)
-            # one read and one write of every slot: 8 bytes in, 9 out
-            rec["gbps"] = R * W * 17 / (rec["ms"] * 1e-3) / 1e9
-            # the bitonic network on the row padded to Wp: Wp/2
-            # compare-exchanges in each of L(L+1)/2 stages
-            L = max(7, (W - 1).bit_length())
-            rec["bound_ms"], rec["bound_by"] = bound(
-                17.0 * R * W, R * (2 ** L // 2) * L * (L + 1) / 2, ALU_OPS_S)
-            ctx["k3_time"] = (rec["ms"], rec["plain_ms"], rec["bound_ms"],
-                              rec["bound_by"], None)
+        if is_timed:
+            rec.update(k3_timed(f, c, v, m))
+            timed[f"{R}x{W}"] = {k: rec[k] for k in (
+                "ms", "plain_ms", "sort_ms", "bound_ms", "bound_share")}
+            if (R, W) == K3_D8[1]:
+                ctx["k3_time"] = (rec["ms"], rec["plain_ms"],
+                                  rec["bound_ms"], rec["bound_by"], None)
         emit("k3", **rec)
         if err:
             raise AssertionError(f"K3 differs from plain at {rec}: {errs}")
         del c, v
     ctx["k3_err"] = worst
+    ctx["k3_extra"] = dict(tiles=timed)
 
 
 def phase_rref(ctx):
@@ -825,12 +881,35 @@ def onepass_pair(name, A):
                                          assume_canonical=True)[0]
 
     def card(stats):
+        """One card run; stats gets the one-pass _stats, K3's launches and
+        K3's own time summed over them (CUDA events around each call)."""
         Ustar, ok = mutual_reduce(f, Upart, pcols, levels)
         assert ok, name
+        kernel = cuda_merge.merge_rows_cuda
+        spans = []
+
+        def timed(f_, c, v, m_):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = kernel(f_, c, v, m_)
+            ev[1].record()
+            spans.append(ev)
+            return out
+
         cuda_merge.launches = 0
-        D = eliminate_onepass_device(f, Ustar, pcols, S_rest, device=DEV,
-                                     _stats=stats)
+        if DEV == "cuda":
+            cuda_merge.merge_rows_cuda = timed
+        try:
+            D = eliminate_onepass_device(f, Ustar, pcols, S_rest, device=DEV,
+                                         _stats=stats)
+        finally:
+            cuda_merge.merge_rows_cuda = kernel
         stats["k3_launches"] = cuda_merge.launches
+        sync()
+        stats["k3_ms"] = sum(a.elapsed_time(b) for a, b in spans)
+        if stats.get("device_s"):
+            stats["k3_share_of_device_s"] = (stats["k3_ms"] / 1e3
+                                             / stats["device_s"])
         return D
 
     def checked():
@@ -993,6 +1072,9 @@ def main(argv=None) -> int:
         if name == "modmatmul":
             # ms is the wrapper call (both splits and the product)
             kernels[-1].update(ctx.get("k1_extra", {}))
+        if name == "merge":
+            # every timed tile, with the torch.sort yardstick beside it
+            kernels[-1].update(ctx.get("k3_extra", {}))
     print(f"[done] phases={','.join(p for p in PHASES if p in phases)} "
           f"wall_s={time.perf_counter() - t_all:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -211,12 +211,15 @@ def _merge_tile(f, R, W, m, seed):
 
 
 @pytest.mark.parametrize("W", [128, 512, 2048, 8192, 16384, 65536, 80, 1040,
-                               40000])
+                               40000, 1, 2, 3, 31, 32, 33, 272, 511, 513,
+                               1024, 1025, 2049, 16385])
 @pytest.mark.parametrize("p", PRIMES)
 def test_merge_kernel_matches_plain(p, W, card):
-    # 65536 and 40000 take the kernel's global-memory variant; the plain
-    # version sorts by the same (col, val) key, so all three outputs are
-    # bit-equal
+    # the edges of the kernel's levels: 32 keys a lane from 64 slots on, a
+    # row in one warp up to 32 E = 1024 slots, in one CTA up to 16384;
+    # 16385, 65536 and 40000 take the global-memory variant; widths with
+    # W % 16 != 0 take scalar accesses.  The plain version sorts by the same (col, val) key, so
+    # all three outputs are bit-equal
     f = field(p)
     R, m = max(3, (1 << 19) // W), max(3, W // 3)
     cols, vals = _merge_tile(f, R, W, m, W + p % 97)
@@ -228,6 +231,25 @@ def test_merge_kernel_matches_plain(p, W, card):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("R,W", [(4099, 32), (1027, 272)])
+def test_merge_kernel_d8_tiles(R, W, card):
+    # d8's two tile widths at small R, with d8's p and m (1,562,275): rows
+    # pack 16 to a warp at Wt 32, 2 at Wt 272 (padded to 512)
+    f, m = field(42013), 1562275
+    cols, vals = _merge_tile(f, R, W, m, W)
+    cols, vals = cols.to(card), vals.to(card)
+    want = merge.merge_rows_plain(f, cols, vals, m)
+    # then from storage 4 bytes past a 16-byte boundary: scalar accesses
+    off_c = torch.empty(R * W + 1, dtype=torch.int32, device=card)
+    off_v = torch.empty_like(off_c)
+    off_c[1:], off_v[1:] = cols.flatten(), vals.flatten()
+    for c, v in ((cols, vals), (off_c[1:].view(R, W), off_v[1:].view(R, W))):
+        got = cuda_merge.merge_rows_cuda(f, c, v, m)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("case", ["random", "boundary"])
