@@ -47,6 +47,18 @@ Phases, one line each:
            the ranks of d8 and
            the random matrix with the option on and off, with the launch
            counts; echelonize of d7 with the option, card against CPU
+  api      the public surface on the card: on the planted-rank flagship,
+           echelonize(L=True), kernel (1024 rows, A @ K.T == 0 by host
+           SpMVs), solve (x @ A == b; None outside the row space; K1 and
+           K2 launched inside the first solve, which inverts the
+           dense-finish corner block), gesv on 256 rows (half
+           consistent), a rank certificate (a tampered one refused) and
+           factorization_verify; the kernel basis and certificate of the
+           d8 boundary; at 4000^2 (corner block >= 1024 rows) the
+           card's kernel, rref, solve, gesv, certificate and complete
+           echelonize bit-equal to device="cpu"; the CLI's rank, kernel
+           and solve with --device cuda byte-equal to --device cpu.  Each
+           wall is printed beside the card's name and power limit.
 
 With ``--profile DIR``, e2e also traces one warm flagship rank with
 torch.profiler: kernel time by name, the device's busy share, and a Chrome
@@ -63,6 +75,7 @@ it exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -75,7 +88,8 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("build", "k1", "k2", "k3", "rref", "e2e", "echelon", "sparse")
+PHASES = ("build", "k1", "k2", "k3", "rref", "e2e", "echelon", "sparse",
+          "api")
 DEV = "cuda"
 
 # (n, k, m, p): the K1 shapes that are timed: 4096^3 (the kernels line),
@@ -134,6 +148,13 @@ K3_WIDE = (K3_SLOTS // 1040, 1040)
 # random matrix of the JAX package's tools/device_crossover.py
 D7, D8 = (22, 7, 116280), (26, 8, 1081575)
 RANDOM30K = (30000, 2e-4, 42)              # n, density, seed
+# the api phase: right-hand sides of gesv on the flagship (half in the row
+# space), the kernel of d8 (m - rank rows), and the case held card against
+# CPU: SparseGFp.rand(field(42013), n, n, density, default_rng(seed)) with
+# rows keep.. planted, whose dense-finish corner block has >= 1024 rows
+API_GESV_RHS = 256
+D8_KERNEL_ROWS = 480700
+API_MID = (4000, 0.0013, 3, 3734)          # n, density, seed, keep
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W) for the
 # kernels' bounds: device memory, int8 tensor cores, and the float32 rate
 # outside the tensor cores, which stands for the integer and compare work
@@ -1016,6 +1037,280 @@ def phase_sparse(ctx):
          rank=int(got["r"]), walls_s=[wall_g, wall_c], mismatched=bad)
     if bad or set(got) != set(want) or got["r"] != D7[2]:
         raise AssertionError(f"d7 echelonize card != cpu in {bad}")
+
+
+def reset_launches() -> None:
+    from spasm_tpu_torch.ops import cuda_matmul, cuda_merge, cuda_panel
+
+    cuda_matmul.launches = cuda_matmul.split_launches = 0
+    cuda_panel.launches = cuda_merge.launches = 0
+
+
+def read_launches() -> dict:
+    from spasm_tpu_torch.ops import cuda_matmul, cuda_merge, cuda_panel
+
+    return {"modmatmul": cuda_matmul.launches,
+            "modmatmul_split": cuda_matmul.split_launches,
+            "panel": cuda_panel.launches, "merge": cuda_merge.launches}
+
+
+def wall(fn):
+    """(fn(), its wall in s, ended by a synchronize)."""
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, round(time.perf_counter() - t0, 4)
+
+
+def null_rows_check(A, K, chunk: int = 128) -> None:
+    """A @ K.T == 0 mod p, by host SpMVs over the rows of K (chunks of K
+    made dense)."""
+    f = A.field
+    As, Ks = A.to_scipy().astype(np.int64), K.to_scipy()
+    for r0 in range(0, K.n, chunk):
+        Kd = Ks[r0:r0 + chunk].toarray().astype(np.int64)
+        if f.normalize(As @ Kd.T).any():
+            raise AssertionError(f"A @ K.T != 0 in kernel rows {r0}..")
+
+
+def rows_times(X, A, rows):
+    """(X[rows] @ A) mod p as a dense array, by host SpMVs."""
+    Xd = X.to_scipy()[rows].toarray().astype(np.int64)
+    return A.field.normalize((A.to_scipy().astype(np.int64).T @ Xd.T).T)
+
+
+def api_flagship(ctx):
+    from spasm_tpu_torch import (SparseGFp, certificate_rank_create,
+                                 certificate_rank_verify, echelonize,
+                                 factorization_verify, field, gesv, kernel,
+                                 matrix_hash, solve)
+
+    f = field(42013)
+    N = FLAGSHIP_N
+    A = planted_rank(SparseGFp.rand(f, N, N, 0.02, np.random.default_rng(5)),
+                     PLANTED_KEEP, np.random.default_rng(6))
+    rng = np.random.default_rng(7)
+    walls = {}
+    # the slice's path on the card: counts set to 0 right before, read
+    # right after
+    reset_launches()
+    fact, walls["echelonize_L"] = wall(
+        lambda: echelonize(A, L=True, device=DEV))
+    ds = fact.dense_piv_start
+    corner = 0 if ds is None else fact.r - ds
+    K, walls["kernel"] = wall(lambda: kernel(fact))
+    b = A.xapy(f.rand(N, rng))
+    before = read_launches()
+    x, walls["solve_first"] = wall(lambda: solve(fact, b))
+    in_solve = {k: v - before[k] for k, v in read_launches().items()}
+    b2 = A.xapy(f.rand(N, rng))
+    x2, walls["solve_cached"] = wall(lambda: solve(fact, b2))
+    bad = f.rand(N, rng)
+    none, walls["solve_outside"] = wall(lambda: solve(fact, bad))
+    half = API_GESV_RHS // 2
+    B = (SparseGFp.rand(f, half, N, 0.001, rng) @ A).vstack(
+        SparseGFp.rand(f, half, N, 0.01, rng))
+    (X, ok), walls["gesv"] = wall(lambda: gesv(fact, B))
+    h = matrix_hash(A)
+    cert, walls["certificate_create"] = wall(
+        lambda: certificate_rank_create(A, h, device=DEV))
+    good, walls["certificate_verify"] = wall(
+        lambda: certificate_rank_verify(A, h, cert))
+    launches = read_launches()
+    y = cert.y.copy()
+    y[len(y) // 2] = f.normalize(y[len(y) // 2] + 1)
+    tampered = certificate_rank_verify(A, h, dataclasses.replace(cert, y=y))
+    fv, walls["factorization_verify"] = wall(
+        lambda: factorization_verify(A, fact))
+    emit("api", case=f"planted-rank flagship {N}x{N}, rank {PLANTED_KEEP}",
+         card=ctx["card"], nnz=A.nnz, rank=fact.r,
+         dense_piv_start=ds, corner_block=[corner, corner],
+         kernel_rows=K.n, kernel_nnz=K.nnz, gesv_ok=int(ok.sum()),
+         certificate_r=cert.r, walls_s=walls, launches_in_first_solve=
+         in_solve, launches=launches)
+    if fact.r != PLANTED_KEEP or K.n != N - PLANTED_KEEP:
+        raise AssertionError(f"rank {fact.r}, kernel rows {K.n}")
+    null_rows_check(A, K)
+    for xx, bb in ((x, b), (x2, b2)):
+        if xx is None or not np.array_equal(A.xapy(xx), bb):
+            raise AssertionError("solve: x @ A != b")
+    if none is not None:
+        raise AssertionError("solve found x for b outside the row space")
+    if not (ok[:half].all() and not ok[half:].any()):
+        raise AssertionError(f"gesv ok marks {np.flatnonzero(ok)}")
+    Bd = B.to_scipy()[:half].toarray()
+    if not np.array_equal(rows_times(X, A, slice(0, half)), f.normalize(Bd)):
+        raise AssertionError("gesv: X @ A != B on the consistent rows")
+    if X.to_scipy()[half:].nnz:
+        raise AssertionError("gesv: rows without a solution are not zero")
+    if not good or tampered or cert.r != PLANTED_KEEP:
+        raise AssertionError(f"certificate: verify {good}, tampered "
+                             f"{tampered}, r {cert.r}")
+    if not fv:
+        raise AssertionError("factorization_verify(A, fact) failed")
+    if DEV == "cuda" and not (in_solve["modmatmul"] and in_solve["panel"]):
+        raise AssertionError(f"the first solve launched no K1 or K2: "
+                             f"{in_solve}")
+
+
+def api_d8(ctx):
+    from spasm_tpu_torch import (certificate_rank_create,
+                                 certificate_rank_verify, kernel,
+                                 matrix_hash)
+    from spasm_tpu_torch._host.fixtures import simplex_boundary
+
+    B, t_build = wall(lambda: simplex_boundary(*D8[:2]))
+    f = B.field
+    walls = {}
+    reset_launches()
+    K, walls["kernel"] = wall(lambda: kernel(B, device=DEV))
+    h = matrix_hash(B)
+    cert, walls["certificate_create"] = wall(
+        lambda: certificate_rank_create(B, h, device=DEV))
+    good, walls["certificate_verify"] = wall(
+        lambda: certificate_rank_verify(B, h, cert))
+    launches = read_launches()
+    # Freivalds: B @ (v @ K) == 0 for random v
+    rng = np.random.default_rng(8)
+    zero = all(not B.axpy(K.xapy(f.rand(K.n, rng))).any() for _ in range(2))
+    emit("api", case=f"d8 boundary {D8[:2]}", card=ctx["card"],
+         shape=list(B.shape), nnz=B.nnz, build_s=t_build, rank=cert.r,
+         kernel_rows=K.n, kernel_nnz=K.nnz, walls_s=walls,
+         launches=launches)
+    if K.n != D8_KERNEL_ROWS or cert.r != D8[2] or not good or not zero:
+        raise AssertionError(f"d8: kernel rows {K.n}, rank {cert.r}, "
+                             f"verify {good}, B @ K.T == 0 {zero}")
+
+
+def api_mid_case():
+    from spasm_tpu_torch import SparseGFp, field
+
+    n, d, seed, keep = API_MID
+    return planted_rank(SparseGFp.rand(field(42013), n, n, d,
+                                       np.random.default_rng(seed)),
+                        keep, np.random.default_rng(seed + 1))
+
+
+def api_outputs(A, device):
+    """Every output array of the public calls on ``device``, by name, and
+    their walls."""
+    from spasm_tpu_torch import (SparseGFp, certificate_rank_create,
+                                 echelonize, gesv, kernel, rref, solve)
+    from spasm_tpu_torch.interop import lu_arrays
+
+    f = A.field
+    rng = np.random.default_rng(9)
+    out, walls = {}, {}
+
+    def put(prefix, M):
+        for k in ("indptr", "indices", "data"):
+            out[f"{prefix}_{k}"] = np.asarray(getattr(M, k))
+
+    K, walls["kernel"] = wall(lambda: kernel(A, device=device))
+    put("kernel", K)
+    fact, walls["echelonize_L"] = wall(
+        lambda: echelonize(A, L=True, device=device))
+    (R, q), walls["rref"] = wall(lambda: rref(fact))
+    put("rref", R)
+    out["rref_qinv"] = q
+    b = A.xapy(f.rand(A.n, rng))
+    x, walls["solve_first"] = wall(lambda: solve(fact, b))
+    out["solve_x"] = x
+    B = (SparseGFp.rand(f, 16, A.n, 0.01, rng) @ A).vstack(
+        SparseGFp.rand(f, 16, A.m, 0.01, rng))
+    (X, ok), walls["gesv"] = wall(lambda: gesv(fact, B))
+    put("gesv_X", X)
+    out["gesv_ok"] = ok
+    cert, walls["certificate_create"] = wall(
+        lambda: certificate_rank_create(A, device=device))
+    for k in ("r", "prime", "i", "j", "x", "y"):
+        out[f"cert_{k}"] = np.asarray(getattr(cert, k))
+    comp, walls["echelonize_complete"] = wall(
+        lambda: echelonize(A, complete=True, L=True, device=device))
+    out.update({f"complete_{k}": v for k, v in lu_arrays(comp).items()})
+    out.update({f"L_{k}": v for k, v in lu_arrays(fact).items()})
+    return out, walls, fact
+
+
+def api_card_vs_cpu(ctx):
+    A = api_mid_case()
+    reset_launches()
+    got, walls_g, fact = api_outputs(A, DEV)
+    launches = read_launches()
+    want, walls_c, _ = api_outputs(A, "cpu")
+    bad = sorted(k for k in set(got) | set(want)
+                 if k not in got or k not in want
+                 or not np.array_equal(got[k], want[k]))
+    ds = fact.dense_piv_start
+    corner = 0 if ds is None else fact.r - ds
+    emit("api", case=f"rand {API_MID[0]}^2 d={API_MID[1]} seed "
+         f"{API_MID[2]}, rows {API_MID[3]}.. planted", card=ctx["card"],
+         nnz=A.nnz, rank=fact.r, corner_block=[corner, corner],
+         arrays=len(want), mismatched=bad, walls_card_s=walls_g,
+         walls_cpu_s=walls_c, launches=launches)
+    if bad:
+        raise AssertionError(f"api card != cpu in {bad}")
+    if corner < 1024:
+        raise AssertionError(f"corner block {corner} under 1024 rows: the "
+                             "inverse did not take the tensor path")
+    if DEV == "cuda" and not (launches["modmatmul"] and launches["panel"]):
+        raise AssertionError(f"no K1 or K2 launch: {launches}")
+    return A
+
+
+def api_cli(ctx, A):
+    from spasm_tpu_torch import SparseGFp, save_sms
+
+    f = A.field
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "chip_smoke_api")
+    os.makedirs(d, exist_ok=True)
+    a_path = os.path.join(d, "a.sms")
+    save_sms(A, a_path)
+    rng = np.random.default_rng(10)
+    B = (SparseGFp.rand(f, 4, A.n, 0.01, rng) @ A).vstack(
+        SparseGFp.rand(f, 4, A.m, 0.01, rng))
+    b_path = os.path.join(d, "b.sms")
+    save_sms(B, b_path)
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs, walls = {}, {}
+    # one process at a time: two at once oversubscribe the host kernels'
+    # OpenMP threads
+    for tool, args, stdin in (("rank", [a_path], None),
+                              ("kernel", [a_path], None),
+                              ("solve", ["--matrix", a_path], b_path)):
+        for dev in (DEV, "cpu"):
+            t0 = time.perf_counter()
+            with open(stdin or os.devnull, "rb") as fh:
+                out = subprocess.run(
+                    [sys.executable, "-m", "spasm_tpu_torch.cli", tool,
+                     "--device", dev] + args, stdin=fh, capture_output=True,
+                    timeout=600, cwd=root)
+            walls[f"{tool}_{dev}"] = round(time.perf_counter() - t0, 3)
+            result = [ln for ln in out.stderr.decode().splitlines()
+                      if ln.startswith(("rank = ", "ok = "))]
+            if out.returncode not in (0, 1) or not result:
+                raise AssertionError(f"cli {tool} --device {dev}: exit "
+                                     f"{out.returncode}\n"
+                                     f"{out.stderr.decode()[-2000:]}")
+            runs[tool, dev] = (out.returncode, out.stdout, result)
+    same = {tool: runs[tool, DEV] == runs[tool, "cpu"]
+            for tool in ("rank", "kernel", "solve")}
+    emit("api", case="cli rank, kernel, solve: --device "
+         f"{DEV} against --device cpu", card=ctx["card"], same=same,
+         stdout_bytes={t: len(runs[t, DEV][1]) for t in same},
+         results={t: runs[t, DEV][2] for t in same}, walls_s=walls)
+    if not all(same.values()):
+        raise AssertionError(f"cli card != cpu: {same}")
+    if runs["solve", DEV][2] != ["ok = 11110000"]:
+        raise AssertionError(f"cli solve: {runs['solve', DEV][2]}")
+
+
+def phase_api(ctx):
+    api_flagship(ctx)
+    api_d8(ctx)
+    A = api_card_vs_cpu(ctx)
+    api_cli(ctx, A)
 
 
 def main(argv=None) -> int:

@@ -10,21 +10,54 @@ through hand-written CUDA kernels: the exact mod-p matmul on int8 tensor
 cores (``ops/cuda_matmul.py``) and the panel Jordan elimination on a
 thread-block cluster (``ops/cuda_panel.py``); the opt-in device sparse
 Schur update merges rows with a third (``ops/cuda_merge.py``).
-``echelonize`` and ``rank`` take ``device="cuda"`` (the default) or
-``device="cpu"``.
+
+The public surface is the reference's: RREF, kernel bases, solve / gesv
+(whose dense-finish corner block is inverted on the LU's device), rank
+certificates, DM / SCC decompositions, block decompositions, LU files in
+the reference's format, and the CLI (``python -m spasm_tpu_torch.cli``).
+``echelonize``, ``rank``, ``certificate_rank_create`` and ``load_lu`` take
+``device="cuda"`` (the default) or ``device="cpu"``.
 
 This package imports neither jax nor anything of ``spasm_tpu``.
 """
 
-from ._host.csr import SparseGFp, Triplet
-from ._host.field import Field, field
-from ._host.io import load_sms, save_sms
+from ._host.field import DEFAULT_PRIME, F0, Field, ZZp, field
+from ._host.csr import (SparseGFp, Triplet, inverse_permutation, ipvec,
+                        pvec, random_permutation)
+from ._host.io import dumps_sms, load_sms, matrix_hash, save_pnm, save_sms
 from .echelonize import LU, EchelonizeOptions, echelonize, last_phase_stats
-from .solve import rank
+from .solve import (dense_back_solve, dense_forward_solve, gesv, kernel,
+                    kernel_from_rref, kernel_pivots, rank, rref, rref_of_U,
+                    solve, sparse_triangular_solve)
+from ._host.graphs import (dulmage_mendelsohn, maximum_matching,
+                           strongly_connected_components, structural_rank)
+from .blocks import (Block, block_decompose, echelonize_blocks,
+                     kernel_blocks, rank_blocks)
+from .certificate import (RankCertificate, certificate_rank_create,
+                          certificate_rank_verify, factorization_verify,
+                          rank_certificate_load, rank_certificate_save)
+from .checkpoint import load_lu, save_lu
+from ._host.native import release_native_scratch
+from ._host.utils.logging import set_log, wtime
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "Field", "field", "SparseGFp", "Triplet", "load_sms", "save_sms",
-    "LU", "EchelonizeOptions", "echelonize", "last_phase_stats", "rank",
+    "DEFAULT_PRIME", "F0", "Field", "ZZp", "field",
+    "SparseGFp", "Triplet", "inverse_permutation", "ipvec", "pvec",
+    "random_permutation",
+    "dumps_sms", "load_sms", "matrix_hash", "save_pnm", "save_sms",
+    "LU", "EchelonizeOptions", "echelonize", "last_phase_stats",
+    "dense_back_solve", "dense_forward_solve", "gesv", "kernel",
+    "kernel_from_rref", "kernel_pivots", "rank", "rref", "rref_of_U",
+    "solve", "sparse_triangular_solve",
+    "dulmage_mendelsohn", "maximum_matching",
+    "strongly_connected_components", "structural_rank",
+    "Block", "block_decompose", "echelonize_blocks", "kernel_blocks",
+    "rank_blocks",
+    "RankCertificate", "certificate_rank_create", "certificate_rank_verify",
+    "factorization_verify", "rank_certificate_load", "rank_certificate_save",
+    "load_lu", "save_lu",
+    "release_native_scratch",
+    "set_log", "wtime",
 ]

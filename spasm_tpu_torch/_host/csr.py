@@ -200,11 +200,13 @@ class SparseGFp:
 
     def __truediv__(self, fact):
         """``B / LU`` — batched sparse triangular solve X @ U == B with
-        the factorization's qinv (src/SpaSM.jl:755).  The port has no
-        sparse triangular solve yet: an ``LU`` raises NotImplementedError."""
-        from ..echelonize import LU, _not_ported
+        the factorization's qinv (src/SpaSM.jl:755): the port's ``LU``
+        and ``solve.sparse_triangular_solve``.  Returns X or None if any
+        row is unsolvable."""
+        from ..echelonize import LU
+        from ..solve import sparse_triangular_solve
         if isinstance(fact, LU):
-            _not_ported("B / LU (sparse_triangular_solve)", "item 6")
+            return sparse_triangular_solve(fact, self)
         return NotImplemented
 
     # ---------------- conversions ----------------

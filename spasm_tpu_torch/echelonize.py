@@ -18,8 +18,11 @@ least N nonzeros takes the device sparse Schur update
 (``ops/sparse_onepass.py``: the K3 merge on a card, its plain version on
 the CPU) instead of the host kernel, as in the reference.
 
+``opts.complete`` replaces the factorization by the canonical RREF of its
+row space, as in the reference (``solve.rref_of_U``).
+
 Not ported yet (they raise ``NotImplementedError``): ``checkpoint=`` /
-``resume=``, ``mesh=`` and ``opts.complete``.
+``resume=`` and ``mesh=``.
 """
 
 from __future__ import annotations
@@ -103,7 +106,9 @@ def _auto_dense_budget(device: torch.device) -> int:
 class LU:
     """Echelonization result, field for field the reference's ``LU``
     (U rows in pivot order, unit pivots located by qinv, p maps U rows to
-    rows of A, L with A == L @ U when requested)."""
+    rows of A, L with A == L @ U when requested).  ``_device`` is the
+    device it was computed on (or loaded for): the solves invert its
+    dense-finish corner block there."""
 
     field: Field
     n: int
@@ -118,6 +123,7 @@ class LU:
     _levels: "np.ndarray | None" = None
     dense_piv_start: "int | None" = None
     lp_order: "np.ndarray | None" = None
+    _device: str = "cuda"
 
     @property
     def rank(self) -> int:
@@ -170,8 +176,6 @@ def echelonize(A: SparseGFp, opts: EchelonizeOptions | None = None,
     if device.type == "cuda":
         torch.zeros(0, device=device)  # raises here when there is no card
     opts = parse_echelonize_opts(opts, device=device, **kwargs)
-    if opts.complete:
-        _not_ported("opts.complete", "item 6")
     if not isinstance(verbose, bool):
         verbose = A.nnz >= verbose
     with push_verbose(verbose):
@@ -423,7 +427,32 @@ def _echelonize_impl(A: SparseGFp, opts: EchelonizeOptions,
 
     fact = LU(field=f, n=n, m=m, r=r, complete=False, U=U, qinv=qinv,
               p=p_vec, piv_cols=piv_cols, L=L,
-              dense_piv_start=dense_piv_start, lp_order=lp_order)
+              dense_piv_start=dense_piv_start, lp_order=lp_order,
+              _device=str(device))
+    if opts.complete:
+        from .solve import rref_of_U, rref_qinv_of  # cycle-free import
+
+        # the canonical RREF's pivot columns are its rows' leading columns
+        # (they can differ from the factorization's pivot choices); against
+        # an RREF any row's elimination coefficients are its values at the
+        # pivot columns, so L becomes a column selection of A.
+        R = rref_of_U(fact)
+        qinv_c = rref_qinv_of(R)
+        piv_cols_c = np.flatnonzero(qinv_c >= 0)[
+            np.argsort(qinv_c[qinv_c >= 0], kind="stable")]
+        L_c = None
+        if opts.L:
+            sel = np.full(m, -1, np.int64)
+            sel[piv_cols_c] = np.arange(r)
+            L_c = A.select_cols(sel, r)
+        # provenance: RREF rows are combinations, keep the original pivot
+        # rows sorted by their columns as representatives
+        order = np.argsort(piv_cols, kind="stable")
+        fact = dataclasses.replace(
+            fact, U=R, complete=True, qinv=qinv_c, piv_cols=piv_cols_c,
+            p=p_vec[order], _levels=np.zeros(r, np.int64), L=L_c,
+            dense_piv_start=0 if opts.L else None,  # L_c is not triangular
+            lp_order=None)
     stats["assemble_s"] = wtime() - t_assemble
     stats["total_s"] = wtime() - t_start
     stats["device_share"] = (stats["device_s"] / stats["total_s"]

@@ -294,3 +294,75 @@ def test_echelonize_device_sparse_card_matches_cpu(card):
     assert set(got) == set(want)
     for k in want:
         assert np.array_equal(got[k], want[k]), k
+
+
+def _solve_case():
+    # max_round=0: the whole matrix goes to the dense finish, so the corner
+    # block is (1100, 1100), past the host cutoff: the tensor path; rank
+    # 1100 < m, so random right-hand sides have no solution
+    return SparseGFp.rand(field(42013), 1100, 1200, 0.06,
+                          np.random.default_rng(3))
+
+
+def test_solve_gesv_kernel_card_match_cpu(card):
+    import spasm_tpu_torch as stt
+
+    A = _solve_case()
+    f = A.field
+    rng = np.random.default_rng(4)
+    b = A.xapy(f.rand(A.n, rng))
+    B = (SparseGFp.rand(f, 6, A.n, 0.02, rng) @ A).vstack(
+        SparseGFp.rand(f, 2, A.m, 0.5, rng))
+    out = {}
+    for dev in (card, "cpu"):
+        fact = stt.echelonize(A, device=dev, L=True, max_round=0)
+        assert fact.r - fact.dense_piv_start == 1100
+        X, ok = stt.gesv(fact, B)
+        out[str(dev)] = dict(
+            lu=lu_arrays(fact), x=stt.solve(fact, b), X=X, ok=ok,
+            K=stt.kernel(A, device=dev), R=stt.rref(fact)[0],
+            cert=stt.certificate_rank_create(A, fact=fact))
+    got, want = out[str(card)], out["cpu"]
+    for k in want["lu"]:
+        assert np.array_equal(got["lu"][k], want["lu"][k]), k
+    assert np.array_equal(got["x"], want["x"])
+    assert np.array_equal(A.xapy(got["x"]), b)
+    assert got["X"] == want["X"] and np.array_equal(got["ok"], want["ok"])
+    assert got["ok"][:6].all() and not got["ok"][6:].any()
+    assert got["K"] == want["K"] and got["R"] == want["R"]
+    for k in ("r", "i", "j", "x", "y"):
+        assert np.array_equal(getattr(got["cert"], k),
+                              getattr(want["cert"], k)), k
+
+
+def test_first_solve_launches_k1_and_k2(card):
+    import spasm_tpu_torch as stt
+
+    A = _solve_case()
+    fact = stt.echelonize(A, device=card, L=True, max_round=0)
+    assert fact._device == "cuda"
+    b = A.xapy(A.field.rand(A.n, np.random.default_rng(5)))
+    counts = []
+    for _ in range(2):
+        before = cuda_matmul.launches, cuda_panel.launches
+        x = stt.solve(fact, b)
+        counts.append((cuda_matmul.launches - before[0],
+                       cuda_panel.launches - before[1]))
+        assert np.array_equal(A.xapy(x), b)
+    # the corner-block inverse runs in the first solve; the second reads
+    # it from the LU
+    assert counts[0][0] > 0 and counts[0][1] > 0
+    assert counts[1] == (0, 0)
+
+
+def test_load_lu_solves_on_the_card(card, tmp_path):
+    import spasm_tpu_torch as stt
+
+    A = _solve_case()
+    fact = stt.echelonize(A, device="cpu", L=True, max_round=0)
+    stt.save_lu(str(tmp_path / "lu.npz"), fact)
+    loaded = stt.load_lu(str(tmp_path / "lu.npz"), device=card)
+    b = A.xapy(A.field.rand(A.n, np.random.default_rng(6)))
+    before = cuda_panel.launches
+    assert np.array_equal(stt.solve(loaded, b), stt.solve(fact, b))
+    assert cuda_panel.launches > before

@@ -161,10 +161,17 @@ def test_rank_and_interop(rng):
 
 
 @pytest.mark.parametrize("kw", [dict(checkpoint="x"), dict(resume="x"),
-                                dict(mesh=object()),
-                                dict(complete=True)])
-def test_deferred_features_raise(kw):
+                                dict(mesh=object()), "--num-devices"])
+def test_deferred_features_raise(kw, tmp_path):
     A = stt.SparseGFp.from_dense([[1, 2], [3, 4]], 42013)
+    if kw == "--num-devices":   # the CLI's mesh flag
+        from spasm_tpu_torch.cli.main import main
+
+        path = str(tmp_path / "a.sms")
+        stt.save_sms(A, path)
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
+            main(["rank", "--device", "cpu", "--num-devices", "2", path])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         stt.echelonize(A, device="cpu", **kw)
 

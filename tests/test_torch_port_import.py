@@ -1,6 +1,7 @@
 """The PyTorch port (spasm_tpu_torch) never imports jax, nor anything of the
-JAX package: its host layer is its own copy, and its native C kernels
-agree with the JAX package's on the same inputs."""
+JAX package: its host layer is its own copy, its top-level copies of the
+reference's jax-free modules differ only where listed, and its native C
+kernels agree with the JAX package's on the same inputs."""
 
 import os
 import re
@@ -34,7 +35,9 @@ def test_import_and_readme_rank_without_jax():
         "r = stt.rank(A, device='cpu')\n"
         "assert r == 1, r\n"
         "from spasm_tpu_torch.ops import cuda_matmul, cuda_panel, _cuda\n"
-        "from spasm_tpu_torch import interop\n"
+        "from spasm_tpu_torch import certificate, checkpoint, interop\n"
+        "from spasm_tpu_torch.cli import main as cli_main\n"
+        "import spasm_tpu_torch.cli.__main__\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert 'spasm_tpu' not in sys.modules\n"
         "print('ok')\n")
@@ -42,8 +45,9 @@ def test_import_and_readme_rank_without_jax():
 
 
 def test_main_path_loads_nothing_outside_the_port():
-    # rank, echelonize, SMS I/O, a fixture and B / LU: no jax, no
-    # spasm_tpu, and every spasm_tpu_torch module from the port's own files
+    # rank, echelonize, SMS I/O, a fixture, B / LU, a kernel, a solve and
+    # a certificate: no jax, no spasm_tpu, and every spasm_tpu_torch module
+    # from the port's own files
     code = (
         "import io, os, sys\n"
         "import numpy as np\n"
@@ -56,13 +60,15 @@ def test_main_path_loads_nothing_outside_the_port():
         "B2 = stt.load_sms(buf, 42013)\n"
         "assert (B2.to_scipy() != B.to_scipy()).nnz == 0\n"
         "assert stt.rank(B, device='cpu') == 56\n"
-        "lu = stt.echelonize(B, device='cpu')\n"
-        "try:\n"
-        "    B / lu\n"
-        "except NotImplementedError as e:\n"
-        "    assert 'item 6' in str(e), e\n"
-        "else:\n"
-        "    raise AssertionError('B / lu did not raise')\n"
+        "lu = stt.echelonize(B, device='cpu', L=True)\n"
+        "X = B / lu\n"
+        "assert X is not None and X.shape == (B.n, 56)\n"
+        "assert (X @ lu.U).to_scipy().nnz == B.nnz\n"
+        "assert stt.kernel(lu).n == B.m - 56\n"
+        "b = B.xapy(np.arange(B.n) % 7)\n"
+        "assert np.array_equal(B.xapy(stt.solve(lu, b)), b)\n"
+        "cert = stt.certificate_rank_create(B, fact=lu)\n"
+        "assert stt.certificate_rank_verify(B, stt.matrix_hash(B), cert)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'spasm_tpu')]\n"
         "assert not bad, bad\n"
@@ -123,9 +129,38 @@ PORT_CSRC = os.path.join(PKG, "_host", "csrc")
 HOST_EDITS = {
     "field": (), "sputil": (), "pivots": (), "elimination": (), "io": (),
     "fixtures": (), "utils/logging": (), "utils/hostmem": (),
+    "graphs": (),
     "csr": ("__truediv__",),          # B / LU reaches the port's LU
     "native": ("<docstring>", "_CSRC", "_CACHE", "_build", "_load"),
 }
+# the top-level copies (spasm_tpu_torch/<mod>.py against spasm_tpu/<mod>.py)
+# and what each may change; their import lines are compared after
+# IMPORT_REWRITE
+TOP_EDITS = {
+    # the port's rank keeps device=; the corner inverse runs on the LU's
+    # device
+    "solve": ("<docstring>", "rank", "_dense_block_inverse"),
+    # load_lu(device=)
+    "checkpoint": ("<docstring>", "load_lu"),
+    "blocks": (),
+    # certificate_rank_create(device=)
+    "certificate": ("certificate_rank_create",),
+    # --device; --num-devices raises; the program's name
+    "cli/main": ("<docstring>", "_common_flags", "_ech_opts", "_mesh",
+                 "main"),
+    "cli/__main__": (),
+    "cli/__init__": (),
+}
+# a host module X is the port's ._host.X; spasm_tpu is spasm_tpu_torch
+_HOST_MODS = ("csr|field|io|sputil|native|pivots|elimination|fixtures|"
+              "graphs|utils")
+IMPORT_REWRITE = [
+    (re.compile(rf"^(\s*from )\.({_HOST_MODS})\b"), r"\1._host.\2"),
+    (re.compile(r"^(\s*from )\.\.utils\b"), r"\1.._host.utils"),
+    (re.compile(rf"^(\s*(?:from|import) )spasm_tpu\.({_HOST_MODS})\b"),
+     r"\1spasm_tpu_torch._host.\2"),
+    (re.compile(r"^(\s*(?:from|import) )spasm_tpu\b"), r"\1spasm_tpu_torch"),
+]
 
 
 def test_host_c_sources_are_the_same_files():
@@ -175,6 +210,35 @@ def test_host_module_matches_reference_outside_its_edits(mod):
     want = _unmasked_lines(os.path.join(ROOT, "spasm_tpu", mod + ".py"),
                            names)
     assert got == want, mod
+
+
+def _rewrite_imports(line):
+    for rx, sub in IMPORT_REWRITE:
+        line = rx.sub(sub, line)
+    return line
+
+
+@pytest.mark.parametrize("mod", sorted(TOP_EDITS))
+def test_top_module_matches_reference_outside_its_edits(mod):
+    names = TOP_EDITS[mod]
+    got = _unmasked_lines(os.path.join(PKG, mod + ".py"), names)
+    want = [_rewrite_imports(ln) for ln in _unmasked_lines(
+        os.path.join(ROOT, "spasm_tpu", mod + ".py"), names)]
+    assert got == want, mod
+
+
+def test_import_rewrite_maps_host_and_package_imports():
+    assert _rewrite_imports("    from .csr import SparseGFp") == \
+        "    from ._host.csr import SparseGFp"
+    assert _rewrite_imports("from .solve import rank") == \
+        "from .solve import rank"
+    assert _rewrite_imports("from ..utils.hostmem import x") == \
+        "from .._host.utils.hostmem import x"
+    assert _rewrite_imports("    from spasm_tpu.graphs import dm") == \
+        "    from spasm_tpu_torch._host.graphs import dm"
+    assert _rewrite_imports("    import spasm_tpu as st") == \
+        "    import spasm_tpu_torch as st"
+    assert _rewrite_imports("x = 'spasm_tpu.cli'") == "x = 'spasm_tpu.cli'"
 
 
 # ---- the port's native calls against the JAX package's, one input each
@@ -259,3 +323,22 @@ def test_native_calls_match_jax_package(call):
         np.testing.assert_array_equal(g, w)
     assert port_native._libs and all(
         lib is not None for lib in port_native._libs.values())
+
+
+def test_exports_cover_the_reference():
+    # every name spasm_tpu/__init__.py imports, and its __all__
+    import ast
+
+    import spasm_tpu
+    import spasm_tpu_torch
+
+    with open(os.path.join(ROOT, "spasm_tpu", "__init__.py")) as fh:
+        tree = ast.parse(fh.read())
+    names = {a.asname or a.name for node in tree.body
+             if isinstance(node, ast.ImportFrom) and node.level == 1
+             for a in node.names}
+    assert len(names) > 40
+    assert not [n for n in names if not hasattr(spasm_tpu_torch, n)]
+    assert set(spasm_tpu.__all__) <= set(spasm_tpu_torch.__all__)
+    assert names <= set(spasm_tpu_torch.__all__)
+    assert all(hasattr(spasm_tpu_torch, n) for n in spasm_tpu_torch.__all__)
