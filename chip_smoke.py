@@ -59,10 +59,27 @@ Phases, one line each:
            echelonize bit-equal to device="cpu"; the CLI's rank, kernel
            and solve with --device cuda byte-equal to --device cpu.  Each
            wall is printed beside the card's name and power limit.
+  resume   checkpoint / resume on the card: a child process echelonizes the
+           flagship with a checkpoint and a sidecar saved after every
+           block, is killed with SIGKILL once a sidecar with b0 > 0 is on
+           disk, and the resumed LU must be bit-equal to an uninterrupted
+           run (the sidecar's bytes and save seconds, the resumed and
+           uninterrupted walls, the K1 / K2 launches of the resumed
+           finish); the same for the d8 boundary killed after the round
+           checkpoint of round >= 1
+  mesh     scale-out over torch.distributed: echelonize(d7, mesh=) at world
+           size 1 (NCCL, this process) and 2 (two processes sharing the
+           card over gloo), every rank's LU equal to the single-device LU
+           (device_sparse_min_nnz=1), K3 launches per rank, each rank's
+           tiles held against merge_rows_plain on the card;
+           distributed_rank of a dense 4096^2 matrix of planted rank 3072
+           at world sizes 1 and 2 against rank(A) on the card, with its K1
+           launches; xapy / axpy of d8 on the card against scipy's
+           product mod p on the host
 
-With ``--profile DIR``, e2e also traces one warm flagship rank with
-torch.profiler: kernel time by name, the device's busy share, and a Chrome
-trace in DIR.
+With ``--profile DIR``, e2e also traces one warm flagship rank through
+``spasm_tpu_torch.utils.profiling.trace`` (torch.profiler): kernel time by
+name, the device's busy share, and a Chrome trace in DIR.
 
 Every comparison is exact (GF(p) arithmetic: tolerance 0); a mismatch
 raises.  The last three lines are the kernels' JSON (with each kernel's
@@ -79,8 +96,11 @@ import dataclasses
 import json
 import math
 import os
+import pickle
 import re
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import time
@@ -89,7 +109,7 @@ import numpy as np
 import torch
 
 PHASES = ("build", "k1", "k2", "k3", "rref", "e2e", "echelon", "sparse",
-          "api")
+          "api", "resume", "mesh")
 DEV = "cuda"
 
 # (n, k, m, p): the K1 shapes that are timed: 4096^3 (the kernels line),
@@ -155,6 +175,18 @@ RANDOM30K = (30000, 2e-4, 42)              # n, density, seed
 API_GESV_RHS = 256
 D8_KERNEL_ROWS = 480700
 API_MID = (4000, 0.0013, 3, 3734)          # n, density, seed, keep
+# the mesh phase's distributed_rank case: a dense n^2 matrix at p=42013
+# whose rows keep.. are 3-row combinations of the rows above (seed), and
+# the world sizes of the mesh runs
+DIST_RANK = (4096, 3072, 15)
+MESH_WORLDS = (1, 2)
+# the resume phase's dense finish: rows a block (the default)
+RESUME_BLOCK = 1000
+# seconds a child of the resume / mesh phases may take
+CHILD_TIMEOUT_S = 600
+# the settings a child process of the resume and mesh phases takes from
+# this one
+CHILD_KNOBS = ("DEV", "FLAGSHIP_N", "D7", "D8", "DIST_RANK", "RESUME_BLOCK")
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W) for the
 # kernels' bounds: device memory, int8 tensor cores, and the float32 rate
 # outside the tensor cores, which stands for the integer and compare work
@@ -731,12 +763,11 @@ def timed_rank(A, reps: int = 1):
 def profile_rank(A, out_dir: str) -> None:
     """Trace one rank(A) on the card: kernel time by name and busy share."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from spasm_tpu_torch import rank
+    from spasm_tpu_torch.utils.profiling import trace
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace(out_dir) as prof:
         t0 = time.perf_counter()
         rank(A, device=DEV)
         torch.cuda.synchronize()
@@ -762,9 +793,8 @@ def profile_rank(A, out_dir: str) -> None:
               for nm in ("modmatmul_kernel", "split_rows_kernel",
                          "split_transpose_kernel", "panel_cluster_kernel")},
          top=[dict(name=e.key[:90], calls=e.count,
-                   device_ms=round(dev_us(e) / 1e3, 3)) for e in top])
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "flagship_trace.json"))
+                   device_ms=round(dev_us(e) / 1e3, 3)) for e in top],
+         trace=os.path.join(out_dir, f"trace_{os.getpid()}.json"))
 
 
 def phase_e2e(ctx):
@@ -787,6 +817,7 @@ def phase_e2e(ctx):
     ctx["launches"] = {"modmatmul": cuda_matmul.launches,
                        "modmatmul_split": cuda_matmul.split_launches,
                        "panel": cuda_panel.launches}
+    note_path(ctx, "e2e: flagship rank", ctx["launches"])
     r2, walls, stats = timed_rank(A, reps=2)
     emit("e2e", case=f"flagship {N}x{N} d=0.02 p=42013 seed 5", nnz=A.nnz,
          rank=r, expected=N, first_wall_s=round(first, 4),
@@ -1020,6 +1051,7 @@ def phase_sparse(ctx):
                     raise AssertionError(f"{name}: a kernel of the path was "
                                          f"not launched: {counts}")
                 merge_launches += counts["merge"]
+                note_path(ctx, f"sparse: {name} rank", counts)
         if ranks[1] != ranks[0] or (want is not None and ranks[1] != want):
             raise AssertionError(f"{name}: ranks {ranks}, expected {want}")
         del A
@@ -1037,6 +1069,13 @@ def phase_sparse(ctx):
          rank=int(got["r"]), walls_s=[wall_g, wall_c], mismatched=bad)
     if bad or set(got) != set(want) or got["r"] != D7[2]:
         raise AssertionError(f"d7 echelonize card != cpu in {bad}")
+
+
+def note_path(ctx, path: str, counts: dict) -> None:
+    """Record each kernel's launches on one path of the run (the kernels
+    line's ``launches_by_path``)."""
+    for name, n in counts.items():
+        ctx.setdefault("paths", {}).setdefault(name, {})[path] = n
 
 
 def reset_launches() -> None:
@@ -1313,6 +1352,388 @@ def phase_api(ctx):
     api_cli(ctx, A)
 
 
+# ---------------- resume: checkpoint / resume on the card ----------------
+
+
+def work_dir(name: str) -> str:
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     f"chip_smoke_{name}")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    return d
+
+
+def make_case(name: str):
+    """The flagship or a simplex boundary by name ("flagship", "d7", "d8"),
+    built the same way in every process."""
+    from spasm_tpu_torch import SparseGFp, field
+    from spasm_tpu_torch._host.fixtures import simplex_boundary
+
+    if name == "flagship":
+        return SparseGFp.rand(field(42013), FLAGSHIP_N, FLAGSHIP_N, 0.02,
+                              np.random.default_rng(5))
+    n, k, _ = {"d7": D7, "d8": D8}[name]
+    return simplex_boundary(n, k)
+
+
+def knobs() -> dict:
+    return {k: globals()[k] for k in CHILD_KNOBS}
+
+
+def checkpoint_child(case: str, path: str, log_path: str, kn: dict) -> None:
+    """A child process: echelonize(case, checkpoint=path) with a sidecar
+    saved after every block, each log line flushed to log_path."""
+    import importlib
+
+    from spasm_tpu_torch import echelonize, set_log
+    from spasm_tpu_torch._host.utils.hostmem import tune_host_malloc
+
+    globals().update(kn)
+    tune_host_malloc()
+    importlib.import_module(
+        "spasm_tpu_torch.echelonize").DENSE_CKPT_INTERVAL_S = 0.0
+    A = make_case(case)
+    with open(log_path, "a", buffering=1) as fh:
+        set_log(lambda msg: fh.write(f"{time.time():.3f} {msg}\n"))
+        echelonize(A, checkpoint=path, device=DEV, verbose=True,
+                   dense_block_size=RESUME_BLOCK)
+    set_log(None)
+
+
+def killed_checkpoint_run(case: str, path: str, ready) -> dict:
+    """Run checkpoint_child in a process of its own and SIGKILL it as soon
+    as ready(log lines) holds; returns its log lines and whether the kill
+    landed before the child ended."""
+    import multiprocessing as mp
+
+    log_path = path + ".log"
+    child = mp.get_context("spawn").Process(
+        target=checkpoint_child, args=(case, path, log_path, knobs()))
+    t0 = time.perf_counter()
+    child.start()
+    lines: list[str] = []
+    try:
+        while child.is_alive():
+            if time.perf_counter() - t0 > CHILD_TIMEOUT_S:
+                raise AssertionError(f"{case}: the checkpoint child ran "
+                                     f"past {CHILD_TIMEOUT_S} s")
+            if os.path.exists(log_path):
+                with open(log_path) as fh:
+                    lines = fh.read().splitlines()
+                if ready(lines):
+                    child.kill()
+                    break
+            time.sleep(0.05)
+    finally:
+        if child.is_alive():
+            child.kill()
+        child.join(60)
+    with open(log_path) as fh:
+        lines = fh.read().splitlines()
+    return dict(killed=child.exitcode == -signal.SIGKILL,
+                exitcode=child.exitcode, lines=lines,
+                child_s=round(time.perf_counter() - t0, 3))
+
+
+_SAVED = re.compile(r"checkpoint saved at (round|block offset) (\d+) "
+                    r"\((\d+) bytes, ([\d.]+)s\)")
+
+
+def saves_of(lines) -> list:
+    """(kind, round or b0, bytes, seconds) of each save the log records."""
+    return [(m[1], int(m[2]), int(m[3]), float(m[4]))
+            for m in map(_SAVED.search, lines) if m]
+
+
+def lu_mismatch(got: dict, want: dict) -> list:
+    return sorted(k for k in set(got) | set(want)
+                  if k not in got or k not in want
+                  or not np.array_equal(got[k], want[k]))
+
+
+def resume_case(ctx, case: str, ready, expected_rank: int) -> None:
+    from spasm_tpu_torch import echelonize, last_phase_stats
+    from spasm_tpu_torch.interop import lu_arrays
+
+    A = make_case(case)
+    ctx.setdefault("cases", {})[case] = A
+    reset_launches()
+    fact, uninterrupted_s = wall(lambda: echelonize(
+        A, device=DEV, dense_block_size=RESUME_BLOCK))
+    full_launches = read_launches()
+    want = lu_arrays(fact)
+    d = work_dir(f"resume_{case}")
+    path = os.path.join(d, f"{case}.npz")
+    run = killed_checkpoint_run(case, path, ready)
+    saves = saves_of(run["lines"])
+    sidecar = path + ".dense"
+    sidecar_bytes = (os.path.getsize(sidecar) if os.path.exists(sidecar)
+                     else None)
+    # the resumed path's launches: counts set to 0 right before
+    reset_launches()
+    fact, resumed_s = wall(lambda: echelonize(
+        A, resume=path, device=DEV, dense_block_size=RESUME_BLOCK))
+    launches = read_launches()
+    stats = last_phase_stats()
+    got = lu_arrays(fact)
+    bad = lu_mismatch(got, want)
+    note_path(ctx, f"resume: {case}", launches)
+    emit("resume", case=case, card=ctx["card"], nnz=A.nnz, rank=fact.r,
+         expected=expected_rank, killed=run["killed"],
+         child_exitcode=run["exitcode"], child_s=run["child_s"],
+         saves=[dict(at=k, index=i, bytes=b, save_s=t)
+                for k, i, b, t in saves],
+         sidecar_bytes_at_kill=sidecar_bytes,
+         uninterrupted_s=uninterrupted_s, resumed_s=resumed_s,
+         phases=stats, launches=launches,
+         launches_uninterrupted=full_launches, mismatched=bad,
+         sidecar_left=os.path.exists(sidecar))
+    if bad or fact.r != expected_rank:
+        raise AssertionError(f"{case}: resumed LU != uninterrupted in {bad}, "
+                             f"rank {fact.r}")
+    if not ready(run["lines"]):
+        raise AssertionError(f"{case}: the child ended before its "
+                             f"checkpoint: {run['lines'][-5:]}")
+    if os.path.exists(sidecar):
+        raise AssertionError(f"{case}: the sidecar outlived the finish")
+    shutil.rmtree(d, ignore_errors=True)
+    return launches
+
+
+def phase_resume(ctx):
+    def sidecar_saved(lines):
+        return any(k == "block offset" and b0 > 0
+                   for k, b0, _, _ in saves_of(lines))
+
+    def round_saved(lines):
+        return any(k == "round" and r >= 1 for k, r, _, _ in saves_of(lines))
+
+    launches = resume_case(ctx, "flagship", sidecar_saved, FLAGSHIP_N)
+    if DEV == "cuda" and not (launches["modmatmul"] and launches["panel"]):
+        raise AssertionError(f"the resumed finish launched no K1 or K2: "
+                             f"{launches}")
+    resume_case(ctx, "d8", round_saved, D8[2])
+
+
+# ---------------- mesh: scale-out over torch.distributed ----------------
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def planted_dense(n: int, keep: int, seed: int) -> np.ndarray:
+    """A dense (n, n) matrix at p=42013 whose rows keep.. are random 3-row
+    combinations of rows 0..keep-1."""
+    from spasm_tpu_torch import field
+
+    f = field(42013)
+    rng = np.random.default_rng(seed)
+    X = f.rand((n, n), rng).astype(np.int64)
+    idx = rng.integers(0, keep, (n - keep, 3))
+    coef = f.rand((n - keep, 3), rng).astype(np.int64)
+    X[keep:] = f.normalize(sum(coef[:, j, None] * X[idx[:, j]]
+                               for j in range(3)))
+    return X
+
+
+def mesh_work(mesh, d7, X) -> dict:
+    """This rank's mesh runs: echelonize(d7, mesh=) with every K3 tile held
+    against the plain merge, then distributed_rank(X); the launch counts
+    of each set to 0 right before and read right after."""
+    from spasm_tpu_torch import echelonize, field, last_phase_stats
+    from spasm_tpu_torch.interop import lu_arrays
+    from spasm_tpu_torch.ops import cuda_merge
+    from spasm_tpu_torch.ops.merge import merge_rows_plain
+    from spasm_tpu_torch.parallel.sharded import distributed_rank
+    out: dict = {"rank": mesh.get_local_rank()}
+    kernel = cuda_merge.merge_rows_cuda
+    tiles = []
+
+    def held(f_, c, v, m_):
+        got = kernel(f_, c, v, m_)
+        want = merge_rows_plain(f_, c, v, m_)
+        tiles.append(dict(shape=list(c.shape), kept=int(want[2].sum()),
+                          max_abs_err=max(max_abs_diff(g, w)
+                                          for g, w in zip(got, want))))
+        return got
+
+    cuda_merge.merge_rows_cuda = held
+    reset_launches()
+    try:
+        fact, out["d7_s"] = wall(lambda: echelonize(d7, mesh=mesh,
+                                                    device=DEV))
+    finally:
+        cuda_merge.merge_rows_cuda = kernel
+    out["d7_launches"] = read_launches()
+    out["d7_phases"] = last_phase_stats()
+    out["d7_lu"] = lu_arrays(fact)
+    out["d7_tiles"] = tiles
+    reset_launches()
+    out["dist_rank"], out["dist_rank_s"] = wall(
+        lambda: distributed_rank(field(42013), mesh, X))
+    out["dist_rank_launches"] = read_launches()
+    return out
+
+
+def mesh_child(rank: int, world: int, port: int, kn: dict,
+               out: str) -> None:
+    """One rank of a gloo group whose ranks share the card (NCCL refuses
+    two ranks on one card)."""
+    import torch.distributed as dist
+
+    from spasm_tpu_torch._host.utils.hostmem import tune_host_malloc
+    from spasm_tpu_torch.parallel.sharded import make_mesh
+
+    globals().update(kn)
+    tune_host_malloc()
+    # the ranks share the host's cores: spinning thread pools of two
+    # processes on every core slow each other down many times over
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    if DEV == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        res = mesh_work(make_mesh(world, device_type=DEV), make_case("d7"),
+                        planted_dense(*DIST_RANK))
+    finally:
+        dist.destroy_process_group()
+    with open(out, "wb") as fh:
+        pickle.dump(res, fh)
+
+
+def mesh_children(world: int) -> list:
+    import multiprocessing as mp
+
+    d = work_dir(f"mesh_{world}")
+    port = free_port()
+    outs = [os.path.join(d, f"rank{r}.pkl") for r in range(world)]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=mesh_child, args=(r, world, port, knobs(),
+                                                  outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    t0 = time.perf_counter()
+    for p in procs:
+        p.join(max(1.0, CHILD_TIMEOUT_S - (time.perf_counter() - t0)))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"mesh world {world}: exit codes "
+                             f"{[p.exitcode for p in procs]}")
+    res = []
+    for o in outs:
+        with open(o, "rb") as fh:
+            res.append(pickle.load(fh))
+    shutil.rmtree(d, ignore_errors=True)
+    return res
+
+
+def phase_mesh(ctx):
+    import torch.distributed as dist
+
+    from spasm_tpu_torch import SparseGFp, echelonize, rank
+    from spasm_tpu_torch.interop import lu_arrays
+    from spasm_tpu_torch.parallel.sharded import make_mesh
+
+    d7 = make_case("d7")
+    want, single_s = wall(lambda: lu_arrays(echelonize(
+        d7, device=DEV, device_sparse_min_nnz=1)))
+    X = planted_dense(*DIST_RANK)
+    want_rank, rank_s = wall(lambda: rank(SparseGFp.from_dense(X, 42013),
+                                          device=DEV))
+    emit("mesh", part="single device", card=ctx["card"], d7_rank=int(
+        want["r"]), d7_s=single_s, dense_shape=list(X.shape),
+         dense_rank=want_rank, dense_rank_s=rank_s)
+    if want["r"] != D7[2] or want_rank != DIST_RANK[1]:
+        raise AssertionError(f"d7 rank {want['r']}, dense rank {want_rank}")
+    for world in MESH_WORLDS:
+        if world == 1:
+            # NCCL in this process
+            dist.init_process_group(
+                "nccl" if DEV == "cuda" else "gloo",
+                init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                world_size=1)
+            try:
+                backend = dist.get_backend()
+                ranks = [mesh_work(make_mesh(1, device_type=DEV), d7, X)]
+            finally:
+                dist.destroy_process_group()
+        else:
+            backend = "gloo"
+            ranks = mesh_children(world)
+        for r in ranks:
+            bad = lu_mismatch(r["d7_lu"], want)
+            tile_err = max((t["max_abs_err"] for t in r["d7_tiles"]),
+                           default=None)
+            path = f"mesh: d7 echelonize, world {world}, rank {r['rank']}"
+            note_path(ctx, path, r["d7_launches"])
+            note_path(ctx, f"mesh: distributed_rank, world {world}, rank "
+                      f"{r['rank']}", r["dist_rank_launches"])
+            emit("mesh", part="d7 echelonize", world=world, backend=backend,
+                 rank_of_mesh=r["rank"], card=ctx["card"],
+                 rank=int(r["d7_lu"]["r"]), wall_s=r["d7_s"],
+                 single_device_s=single_s, phases=r["d7_phases"],
+                 launches=r["d7_launches"], k3_tiles_vs_plain=r["d7_tiles"],
+                 mismatched=bad)
+            emit("mesh", part="distributed_rank", world=world,
+                 backend=backend, rank_of_mesh=r["rank"], card=ctx["card"],
+                 shape=list(X.shape), rank=r["dist_rank"],
+                 expected=want_rank, wall_s=r["dist_rank_s"],
+                 rank_wall_s=rank_s, launches=r["dist_rank_launches"])
+            if bad:
+                raise AssertionError(f"world {world} rank {r['rank']}: mesh "
+                                     f"LU != single-device LU in {bad}")
+            if r["dist_rank"] != want_rank:
+                raise AssertionError(f"distributed_rank {r['dist_rank']} != "
+                                     f"{want_rank}")
+            if DEV == "cuda" and not (
+                    r["d7_launches"]["merge"] == len(r["d7_tiles"]) > 0
+                    and not tile_err
+                    and r["dist_rank_launches"]["modmatmul"]):
+                raise AssertionError(f"world {world} rank {r['rank']}: K3 "
+                                     f"{r['d7_tiles']}, launches "
+                                     f"{r['d7_launches']}, "
+                                     f"{r['dist_rank_launches']}")
+    mesh_spmv(ctx)
+
+
+def mesh_spmv(ctx):
+    """xapy / axpy of d8 on the card against scipy's product mod p."""
+    from spasm_tpu_torch.ops import spmv
+
+    B = ctx.get("cases", {}).get("d8")
+    if B is None:
+        B = make_case("d8")
+    f = B.field
+    S = B.to_scipy().astype(np.int64)
+    rng = np.random.default_rng(16)
+    D, upload_s = wall(lambda: spmv.DeviceCOO.from_csr(B, device=DEV))
+    rec = dict(case=f"d8 boundary {D8[:2]}", card=ctx["card"], nnz=B.nnz,
+               upload_s=upload_s)
+    for op, n_in, n_out, host in (("xapy", B.n, B.m, lambda x: S.T @ x),
+                                  ("axpy", B.m, B.n, lambda x: S @ x)):
+        x = f.rand(n_in, rng).astype(np.int64)
+        y = f.rand(n_out, rng).astype(np.int64)
+        fn = getattr(spmv, op)
+        got, card_s = wall(lambda: fn(D, x, y).cpu().numpy())
+        want, host_s = wall(lambda: f.normalize(host(x) + y))
+        rec[op] = dict(card_s=card_s, host_s=host_s,
+                       equal=bool(np.array_equal(got, want)))
+        if DEV == "cuda":
+            xd, yd = (torch.from_numpy(v).to(DEV) for v in (x, y))
+            rec[op]["card_ms"] = time_ms(lambda: fn(D, xd, yd), 5)
+        if not rec[op]["equal"]:
+            raise AssertionError(f"{op} on the card != scipy mod p")
+    emit("mesh", part="spmv", **rec)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1370,6 +1791,9 @@ def main(argv=None) -> int:
         if name == "merge":
             # every timed tile, with the torch.sort yardstick beside it
             kernels[-1].update(ctx.get("k3_extra", {}))
+        # the launches on each path this run drove, counts set to 0 right
+        # before each and read right after
+        kernels[-1]["launches_by_path"] = ctx.get("paths", {}).get(name, {})
     print(f"[done] phases={','.join(p for p in PHASES if p in phases)} "
           f"wall_s={time.perf_counter() - t_all:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,7 +16,11 @@ The public surface is the reference's: RREF, kernel bases, solve / gesv
 certificates, DM / SCC decompositions, block decompositions, LU files in
 the reference's format, and the CLI (``python -m spasm_tpu_torch.cli``).
 ``echelonize``, ``rank``, ``certificate_rank_create`` and ``load_lu`` take
-``device="cuda"`` (the default) or ``device="cpu"``.
+``device="cuda"`` (the default) or ``device="cpu"``.  ``echelonize`` also
+checkpoints and resumes (``checkpoint=``, ``resume=``) and runs over a mesh
+of ranks (``mesh=``, ``parallel/``: one process a rank over
+``torch.distributed``); ``ops/spmv.py`` is the device SpMV and
+``utils/profiling.py`` the profiling hooks.
 
 This package imports neither jax nor anything of ``spasm_tpu``.
 """

@@ -3,8 +3,9 @@ port of ``spasm_tpu/checkpoint.py``.
 
 ``save_state`` / ``load_state`` (the round state) and ``save_dense_state`` /
 ``load_dense_state`` (the dense finish's sidecar) are the reference's plain
-numpy code; the port's ``echelonize`` does not call them yet
-(``checkpoint=`` / ``resume=`` raise, ROADMAP Queue 1 item 7).
+numpy code, called by ``echelonize(checkpoint=, resume=)``; the files are
+the reference's, so a checkpoint written by either package resumes in the
+other.
 
 ``save_lu`` / ``load_lu`` write and read the reference's file format
 (``"spasm_tpu_lu_v1"``), so a factorization saved by either package loads

@@ -9,8 +9,11 @@ the Julia wrapper scrapes).
 
 One flag is the port's own: ``--device {cuda,cpu}`` (default ``cuda``)
 picks where the echelonization and the solves' dense work run.
-``--num-devices`` (mesh scale-out) is not ported yet and raises
-``NotImplementedError``."""
+``--num-devices N`` row-shards ``rank`` over a mesh of N ranks, one process
+each, as the reference's ``rank`` does (the other tools ignore it): run it
+under ``torchrun --nproc-per-node N``, which starts the N processes; rank 0
+prints.  NCCL joins the ranks where each has a card of its own, gloo
+otherwise (ranks on the CPU, or sharing one card)."""
 
 from __future__ import annotations
 
@@ -34,8 +37,8 @@ def _common_flags(p):
     p.add_argument("--no-fill-filter", action="store_true",
                    help="disable the Markowitz pivot fill filter")
     p.add_argument("--num-devices", type=int, default=None,
-                   help="row-shard over a mesh of this many devices "
-                        "(not ported yet: raises)")
+                   help="row-shard rank over a mesh of this many ranks "
+                        "(run under torchrun --nproc-per-node N)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where echelonize and the solves run")
     p.add_argument("--verbose", action="store_true")
@@ -44,7 +47,6 @@ def _common_flags(p):
 
 
 def _ech_opts(args):
-    _mesh(args)
     kw = {"device": args.device}
     if args.dense_block_size is not None:
         kw["dense_block_size"] = args.dense_block_size
@@ -69,21 +71,44 @@ def _load(args):
 
 
 def _mesh(args):
+    """The mesh of ``--num-devices N``: the process group of the N ranks
+    ``torchrun`` started (one process, without it, for N = 1)."""
     if getattr(args, "num_devices", None) is None:
         return None
-    raise NotImplementedError(
-        "--num-devices (mesh scale-out) is not ported to spasm_tpu_torch "
-        "yet (ROADMAP Queue 1, item 10); use spasm_tpu for it")
+    import os
+
+    import torch
+
+    from ..parallel.multihost import global_mesh, initialize
+
+    n = args.num_devices
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world != n:
+        raise SystemExit(
+            f"--num-devices {n} needs {n} processes, one a rank: run under "
+            f"torchrun --nproc-per-node {n} (this job has {world})")
+    backend = "gloo"
+    if args.device == "cuda":
+        cards = torch.cuda.device_count()
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0"))
+                              % max(1, cards))
+        if cards >= n:
+            backend = "nccl"
+    initialize(backend=backend)
+    return global_mesh(device_type=args.device)
 
 
 def tool_rank(args):
     import spasm_tpu_torch as st
 
-    st.set_log(True)
+    mesh = _mesh(args)
+    # on a mesh every rank echelonizes the same matrix; rank 0 prints
+    lead = mesh is None or mesh.get_local_rank() == 0
+    st.set_log(lead)
     A = _load(args)
-    fact = st.echelonize(A, verbose=True, mesh=_mesh(args),
-                         **_ech_opts(args))
-    print(f"rank = {fact.r}", file=sys.stderr)
+    fact = st.echelonize(A, verbose=True, mesh=mesh, **_ech_opts(args))
+    if lead:
+        print(f"rank = {fact.r}", file=sys.stderr)
     return 0
 
 

@@ -21,13 +21,26 @@ the CPU) instead of the host kernel, as in the reference.
 ``opts.complete`` replaces the factorization by the canonical RREF of its
 row space, as in the reference (``solve.rref_of_U``).
 
-Not ported yet (they raise ``NotImplementedError``): ``checkpoint=`` /
-``resume=`` and ``mesh=``.
+``checkpoint=`` saves the round state after every round, and the dense
+finish's block state into ``<checkpoint>.dense`` at most every
+``DENSE_CKPT_INTERVAL_S`` seconds; ``resume=`` continues from such files
+(``checkpoint.py``, the reference's format: a checkpoint moves between
+the two packages).  A dense sidecar that does not load is logged and
+ignored, and both sidecars (of ``checkpoint`` and ``resume``) are deleted
+once the finish is done: two faults of the reference left out.
+
+``mesh=`` (a 1-D ``DeviceMesh``, ``parallel/``) runs the structural pivot
+elections and the round Schur updates row-sharded over the ranks; every
+rank calls with the same A and returns the same LU.  The dense finish runs
+replicated on every rank's device, and only rank 0 writes checkpoints.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import os
+import zipfile
 
 import numpy as np
 import scipy.sparse as sp
@@ -42,6 +55,7 @@ from ._host.sputil import dense_matmul_host, mod_reduce
 from ._host.utils.logging import log, push_verbose, wtime
 from .ops import dense as dense_ops
 from .ops import sparse_onepass
+from .parallel import sparse_sharded
 
 
 @dataclasses.dataclass
@@ -156,34 +170,37 @@ def last_phase_stats() -> dict:
     return dict(_LAST_STATS)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to spasm_tpu_torch yet (ROADMAP Queue 1, "
-        f"{item}); use spasm_tpu for it")
-
-
 def echelonize(A: SparseGFp, opts: EchelonizeOptions | None = None,
                verbose=False, checkpoint: str | None = None,
                resume: str | None = None, mesh=None, *, device="cuda",
                **kwargs) -> LU:
     """Echelonize A on ``device`` ("cuda" or "cpu").  ``verbose`` may be a
-    bool or an nnz threshold (verbose = nnz(A) >= threshold)."""
-    if checkpoint is not None or resume is not None:
-        _not_ported("checkpoint/resume", "item 7")
-    if mesh is not None:
-        _not_ported("mesh=", "item 10")
+    bool or an nnz threshold (verbose = nnz(A) >= threshold).
+
+    checkpoint: path to persist the round state after every round (and
+    the dense finish's block state beside it); resume: path of a previous
+    checkpoint to continue from (the same A must be passed).  mesh: a 1-D
+    ``torch.distributed.device_mesh.DeviceMesh``; every rank calls with
+    the same A, and ``device`` names the mesh's device type (each rank
+    computes on its own device of that type)."""
     device = torch.device(device)
+    if mesh is not None:
+        if mesh.device_type != device.type:
+            raise ValueError(f"device={str(device)!r} is not the mesh's "
+                             f"device type {mesh.device_type!r}")
+        device = sparse_sharded.mesh_device(mesh)
     if device.type == "cuda":
         torch.zeros(0, device=device)  # raises here when there is no card
     opts = parse_echelonize_opts(opts, device=device, **kwargs)
     if not isinstance(verbose, bool):
         verbose = A.nnz >= verbose
     with push_verbose(verbose):
-        return _echelonize_impl(A, opts, device)
+        return _echelonize_impl(A, opts, device, checkpoint, resume, mesh)
 
 
 def _echelonize_impl(A: SparseGFp, opts: EchelonizeOptions,
-                     device: torch.device) -> LU:
+                     device: torch.device, checkpoint: str | None = None,
+                     resume: str | None = None, mesh=None) -> LU:
     f = A.field
     n, m = A.shape
     t_start = wtime()
@@ -203,6 +220,38 @@ def _echelonize_impl(A: SparseGFp, opts: EchelonizeOptions,
     L_rev_segments: list[tuple[int, int]] = []
     r = 0
     round_idx = 0
+    # on a mesh, rank 0 alone writes (and deletes) the checkpoint files
+    writer = mesh is None or mesh.get_local_rank() == 0
+    dense_resume = None
+    if resume:
+        from . import checkpoint as ckpt
+
+        state = ckpt.load_state(resume)
+        if state["field_p"] != f.p:
+            raise ValueError("checkpoint prime differs from matrix prime")
+        S = state["S"]
+        row_origin = state["row_origin"]
+        r = state["r"]
+        round_idx = state["round_idx"]
+        if r:
+            U_blocks.append(state["U"])
+            piv_cols_all.append(state["piv_cols"])
+            piv_origin_all.append(state["piv_origin"])
+        L_parts.extend(state["L_parts"])
+        L_rev_segments.extend(state.get("L_rev_segments", []))
+        log(f"[echelonize] resumed at round {round_idx}, rank {r}")
+        # the dense finish's block state, validated against the finish's
+        # inputs in _dense_finish_blocked
+        dense_resume = _load_dense_sidecar(resume + ".dense")
+        if mesh is not None:
+            # every rank has read the files before rank 0 replaces them
+            sparse_sharded.barrier(mesh)
+
+    if checkpoint and not resume and writer:
+        # initial checkpoint: a run that dense-switches at round 0 (or
+        # crashes mid-round) still leaves a resumable state on disk
+        _save_checkpoint(checkpoint, f, opts, round_idx, r, S, row_origin,
+                         m, U_blocks, piv_cols_all, piv_origin_all, L_parts)
 
     force_dense = False  # set when a round's density gate trips
     fill_filter_rejects = 0  # Markowitz probe strikes (2 = stop probing)
@@ -212,8 +261,17 @@ def _echelonize_impl(A: SparseGFp, opts: EchelonizeOptions,
         log(f"[echelonize] round {round_idx}")
         Sw = SparseGFp.from_scipy(S, f.p, assume_canonical=True)
         t0 = wtime()
+        fl = col_election = None
+        if mesh is not None:
+            # the FL row and column elections over the mesh, bit-identical
+            # to the host strategies; the greedy completion runs on the
+            # host on every rank
+            fl = sparse_sharded.sharded_fl_election(f, mesh, Sw)
+            col_election = functools.partial(
+                sparse_sharded.sharded_fl_col_election, f, mesh, Sw)
         prows, pcols, counts = find_structural_pivots(
-            Sw, enable_greedy=opts.enable_greedy_pivot_search)
+            Sw, enable_greedy=opts.enable_greedy_pivot_search, fl=fl,
+            col_election=col_election)
         log(f"[pivots] Faugère-Lachartre: {counts['faugere-lachartre']} "
             f"pivots found [{wtime() - t0:.1f}s]")
         log(f"[pivots] ``Faugère-Lachartre on columns'': "
@@ -236,7 +294,8 @@ def _echelonize_impl(A: SparseGFp, opts: EchelonizeOptions,
         # Monte-Carlo density estimate BEFORE paying for the full Schur;
         # the rest-row gather is only needed by the L path and the device
         # sparse path
-        need_rest = opts.L or bool(opts.device_sparse_min_nnz)
+        need_rest = (opts.L or mesh is not None
+                     or bool(opts.device_sparse_min_nnz))
         est, S_rest, rest_rows, blk = _round_schur_estimate(
             f, S, prows, pcols, need_rest=need_rest)
         Upart, piv_vals, levels_blk = blk
@@ -282,13 +341,14 @@ def _echelonize_impl(A: SparseGFp, opts: EchelonizeOptions,
         reduced_L = False
         piv_L = None
         S_new = C = None
-        if (not opts.L and opts.device_sparse_min_nnz
-                and S_rest.nnz >= opts.device_sparse_min_nnz):
+        if not opts.L and (mesh is not None or (
+                opts.device_sparse_min_nnz
+                and S_rest.nnz >= opts.device_sparse_min_nnz)):
             # the round's U block stays the unreduced Upart, as in the
             # reference
             t_dev = wtime()
-            S_new = _device_sparse_schur(f, Upart, pcols, levels_blk, S_rest,
-                                         device)
+            S_new = _device_sparse_schur(f, mesh, Upart, pcols, levels_blk,
+                                         S_rest, device)
             stats["device_s"] += wtime() - t_dev
         if S_new is None:
             # mutual-reduce the round's pivot block once, then the Schur
@@ -347,6 +407,10 @@ def _echelonize_impl(A: SparseGFp, opts: EchelonizeOptions,
         S = S_new
         row_origin = row_origin[rest_rows]
         round_idx += 1
+        if checkpoint and writer:
+            _save_checkpoint(checkpoint, f, opts, round_idx, r, S,
+                             row_origin, m, U_blocks, piv_cols_all,
+                             piv_origin_all, L_parts, L_rev_segments)
 
     # ---------------- finish ----------------
     t_finish = wtime()
@@ -378,8 +442,13 @@ def _echelonize_impl(A: SparseGFp, opts: EchelonizeOptions,
                           or (opts.enable_tall_and_skinny
                               and nrows > opts.tall_and_skinny_ratio * na)))
         if use_dense:
-            blk = _dense_finish_blocked(f, S, row_origin, alive_cols, r,
-                                        opts, L_parts, device, stats)
+            # a resume-only run keeps saving (and finally deletes) the
+            # sidecar it was resumed from
+            ckpt_base = (checkpoint or resume) if writer else None
+            blk = _dense_finish_blocked(
+                f, S, row_origin, alive_cols, r, opts, L_parts, device, stats,
+                ckpt_path=(ckpt_base + ".dense" if ckpt_base else None),
+                dense_resume=dense_resume)
             if blk is not None:
                 dense_piv_start = r
         else:
@@ -394,6 +463,15 @@ def _echelonize_impl(A: SparseGFp, opts: EchelonizeOptions,
             piv_cols_all.append(pcols)
             piv_origin_all.append(porig)
             r += pcols.size
+    if writer:
+        # the finish is done: both sidecars are stale, whichever finish ran
+        for base in {checkpoint, resume} - {None}:
+            if os.path.exists(base + ".dense"):
+                os.unlink(base + ".dense")
+    if mesh is not None and (checkpoint or resume):
+        # no rank returns (and maybe reads the files again) before rank 0
+        # has written and deleted them
+        sparse_sharded.barrier(mesh)
     stats["finish_s"] = wtime() - t_finish
 
     # ---------------- assemble ----------------
@@ -462,6 +540,49 @@ def _echelonize_impl(A: SparseGFp, opts: EchelonizeOptions,
     log(f"[echelonize] Done in {wtime() - t_start:.1f}s. Rank {r}, "
         f"{U.nnz} nz in basis")
     return fact
+
+
+def _save_checkpoint(path, f, opts, round_idx, r, S, row_origin, m,
+                     U_blocks, piv_cols_all, piv_origin_all, L_parts,
+                     L_rev_segments=()):
+    from . import checkpoint as ckpt
+
+    t0 = wtime()
+    U_cat = sp.vstack(U_blocks, format="csr") if U_blocks else \
+        sp.csr_matrix((0, m), dtype=np.int64)
+    ckpt.save_state(
+        path, field_p=f.p, round_idx=round_idx, r=r, S=S,
+        row_origin=row_origin, U_sp=U_cat,
+        piv_cols=(np.concatenate(piv_cols_all) if piv_cols_all
+                  else np.zeros(0, np.int64)),
+        piv_origin=(np.concatenate(piv_origin_all)
+                    if piv_origin_all else np.zeros(0, np.int64)),
+        opts_dict={k: v for k, v in dataclasses.asdict(opts).items()
+                   if isinstance(v, (int, float, bool))},
+        L_parts=L_parts if opts.L else None,
+        L_rev_segments=L_rev_segments if opts.L else ())
+    log(f"[echelonize] checkpoint saved at round {round_idx} "
+        f"({os.path.getsize(path)} bytes, {wtime() - t0:.3f}s)")
+
+
+def _load_dense_sidecar(path):
+    """The dense finish's block state saved at ``path``, or None when there
+    is none or it does not load (a corrupt file, an unknown schema): then
+    the finish starts at block 0."""
+    if not os.path.exists(path):
+        return None
+    from . import checkpoint as ckpt
+
+    try:
+        state = ckpt.load_dense_state(path)
+    except (OSError, ValueError, KeyError, EOFError,
+            zipfile.BadZipFile) as e:
+        log(f"[echelonize] dense-finish sidecar {path} does not load "
+            f"({type(e).__name__}: {e}); ignored")
+        return None
+    log(f"[echelonize] dense-finish sidecar found (b0={state['b0']}, "
+        f"{len(state['piv_cols_loc'])} pivots)")
+    return state
 
 
 def _gather_rest(S, rest_rows):
@@ -535,21 +656,23 @@ def _dense_feasible(S, opts, device: torch.device) -> bool:
     return (opts.dense_block_size + min(nrows, na)) * na <= budget
 
 
-def _device_sparse_schur(f: Field, Upart, pcols, levels, S_rest,
+def _device_sparse_schur(f: Field, mesh, Upart, pcols, levels, S_rest,
                          device: torch.device):
     """Round Schur update on ``device`` (the reference's function of the
-    same name, on one device): mutual-reduce the round's pivot block on the
-    host, then the one-pass batched merge of ``ops/sparse_onepass``, whose
-    padded work may reach 1 << 30 slots on a card and 1 << 27 on the CPU.
-    Where the block does not reduce within its fill cap or the merge is
-    over its budget, the host waves eliminate against the unreduced block
+    same name): mutual-reduce the round's pivot block on the host, then
+    the one-pass batched merge of ``ops/sparse_onepass`` (with a mesh,
+    each rank merges its rows of every class tile), whose padded work may
+    reach 1 << 30 slots on a card and 1 << 27 on the CPU.  Where the block
+    does not reduce within its fill cap or the merge is over its budget,
+    the host waves eliminate against the unreduced block, on every rank
     (the reference runs its device waves there; the Schur complement is
     the same matrix).  A kernel that fails raises."""
     budget = (1 << 30) if _on_accelerator(device) else (1 << 27)
     Ustar, ok = mutual_reduce(f, Upart, pcols, levels)
     if ok:
         D = sparse_onepass.eliminate_onepass_device(
-            f, Ustar, pcols, S_rest, work_budget=budget, device=device)
+            f, Ustar, pcols, S_rest, work_budget=budget, device=device,
+            mesh=mesh)
         if D is not None:
             return D
     log("[schur/device] one-pass unavailable; wave fallback")
@@ -618,8 +741,15 @@ def schur_estimate_density(f: Field, U_sp, piv_cols, levels, S_rest,
     return out.nnz / max(1, out.shape[0] * m)
 
 
+# minimum seconds between dense-finish sidecar saves (tests set 0 so every
+# block saves; a long finish pays at most one compressed write of the
+# accumulated RREF per interval)
+DENSE_CKPT_INTERVAL_S = 60.0
+
+
 def _dense_finish_blocked(f: Field, S, row_origin, alive_cols, r0, opts,
-                          L_parts, device: torch.device, stats: dict):
+                          L_parts, device: torch.device, stats: dict,
+                          ckpt_path=None, dense_resume=None):
     """Blocked dense finish (the reference's function of the same name):
     the remaining rows are processed in dense row blocks against an
     accumulated dense RREF kept in full mutual reduced form, so eliminating
@@ -627,7 +757,11 @@ def _dense_finish_blocked(f: Field, S, row_origin, alive_cols, r0, opts,
     Jordan RREF.  Memory is O((block + rank_tail) * na).  Small problems
     run on the host (NumPy int64); the others on ``device``, whose wall is
     added to stats["device_s"].  In low-rank situations a randomized check
-    certifies the tail dependent and skips it (not with L)."""
+    certifies the tail dependent and skips it (not with L).
+
+    With ``ckpt_path`` the block state is saved there; ``dense_resume`` (a
+    loaded sidecar) continues from it when it matches this finish's inputs
+    and is ignored otherwise."""
     n_s = S.shape[0]
     na = alive_cols.size
     bs = min(n_s, max(128, opts.dense_block_size))
@@ -641,19 +775,32 @@ def _dense_finish_blocked(f: Field, S, row_origin, alive_cols, r0, opts,
     rows_all, cols_all, vals_all = (rows_all[order], cols_all[order],
                                     vals_all[order])
 
+    # a sidecar of another matrix, round or tail is ignored, not resumed
+    ckpt_meta = dict(field_p=f.p, r0=r0, s_nnz=int(S.nnz), n_s=n_s, na=na)
+    if dense_resume is not None:
+        if any(dense_resume.get(k) != v for k, v in ckpt_meta.items()):
+            log("[echelonize/dense] sidecar does not match this finish; "
+                "starting from block 0")
+            dense_resume = None
+        else:
+            log(f"[echelonize/dense] resuming at block offset "
+                f"{dense_resume['b0']}")
+
     device_mode = bs * na >= dense_ops.host_cutoff_for(f)
     log(f"[echelonize/dense] processing {n_s} x {na} in blocks of {bs} "
         f"({'device' if device_mode else 'host'})")
+    loop_kw = dict(ckpt_path=ckpt_path, resume_state=dense_resume,
+                   ckpt_meta=ckpt_meta)
     if device_mode:
         t_dev = wtime()
         result = _blocked_device_loop(f, n_s, na, bs, rows_all, cols_all,
-                                      vals_all, opts, device)
+                                      vals_all, opts, device, **loop_kw)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         stats["device_s"] += wtime() - t_dev
     else:
         result = _blocked_host_loop(f, n_s, na, bs, rows_all, cols_all,
-                                    vals_all, opts)
+                                    vals_all, opts, **loop_kw)
     if result is None:
         return None
     Usp_local, piv_cols_loc, piv_rows_glob = result
@@ -678,12 +825,33 @@ def _block_slice(rows_all, cols_all, vals_all, b0, b1):
     return rows_all[lo:hi] - b0, cols_all[lo:hi], vals_all[lo:hi]
 
 
-def _blocked_host_loop(f, n_s, na, bs, rows_all, cols_all, vals_all, opts):
+def _save_dense_ckpt(ckpt_path, ckpt_meta, b0, Uh, piv_cols_loc,
+                     piv_rows_glob, dry_blocks):
+    from . import checkpoint as ckpt
+
+    t0 = wtime()
+    ckpt.save_dense_state(ckpt_path, b0=b0, Uh=Uh,
+                          piv_cols_loc=piv_cols_loc,
+                          piv_rows_glob=piv_rows_glob,
+                          dry_blocks=dry_blocks, **ckpt_meta)
+    log(f"[echelonize/dense] checkpoint saved at block offset {b0} "
+        f"({os.path.getsize(ckpt_path)} bytes, {wtime() - t0:.3f}s)")
+
+
+def _blocked_host_loop(f, n_s, na, bs, rows_all, cols_all, vals_all, opts,
+                       ckpt_path=None, resume_state=None, ckpt_meta=None):
     Uh = np.zeros((0, na), np.int64)
     piv_cols_loc: list[int] = []
     piv_rows_glob: list[int] = []
     dry_blocks = 0
     b0 = 0
+    if resume_state is not None:
+        Uh = resume_state["Uh"]
+        piv_cols_loc = list(resume_state["piv_cols_loc"])
+        piv_rows_glob = list(resume_state["piv_rows_glob"])
+        dry_blocks = resume_state["dry_blocks"]
+        b0 = resume_state["b0"]
+    last_save = wtime()
     while b0 < n_s:
         b1 = min(n_s, b0 + bs)
         ri, ci, vi = _block_slice(rows_all, cols_all, vals_all, b0, b1)
@@ -707,6 +875,11 @@ def _blocked_host_loop(f, n_s, na, bs, rows_all, cols_all, vals_all, opts):
         else:
             dry_blocks += 1
         b0 = b1
+        if (ckpt_path and b0 < n_s
+                and wtime() - last_save >= DENSE_CKPT_INTERVAL_S):
+            _save_dense_ckpt(ckpt_path, ckpt_meta, b0, Uh, piv_cols_loc,
+                             piv_rows_glob, dry_blocks)
+            last_save = wtime()
         if (_low_rank_mode(opts, len(piv_cols_loc), b0, n_s)
                 and dry_blocks >= 1 and not opts.L and piv_cols_loc):
             if _randomized_tail_is_dependent(
@@ -731,13 +904,15 @@ def _low_rank_mode(opts, rank_so_far, rows_processed, n_s):
 
 
 def _blocked_device_loop(f, n_s, na, bs, rows_all, cols_all, vals_all,
-                         opts, device: torch.device):
+                         opts, device: torch.device, ckpt_path=None,
+                         resume_state=None, ckpt_meta=None):
     """The dense finish's block loop on ``device``: one
     ``dense_ops.blocked_finish_step`` per row block against the accumulated
     mutual RREF ``Ud``, which is allocated once at the rank bound
     min(n_s, na) and updated in place.  Each block's rank is read back, so
     the loop stops once every column holds a pivot, and in low-rank mode a
-    dry block triggers the randomized tail check."""
+    dry block triggers the randomized tail check.  A sidecar save pulls
+    ``Ud[:r_d]`` to the host; a resume puts it back."""
     cap = min(n_s, na)
     Ud = torch.zeros((cap, na), dtype=torch.int32, device=device)
     pc_map = torch.zeros(cap, dtype=torch.int64, device=device)
@@ -748,6 +923,18 @@ def _blocked_device_loop(f, n_s, na, bs, rows_all, cols_all, vals_all,
     piv_rows_glob: list[int] = []
     dry_blocks = 0
     b0 = 0
+    if resume_state is not None:
+        piv_cols_loc = list(resume_state["piv_cols_loc"])
+        piv_rows_glob = list(resume_state["piv_rows_glob"])
+        dry_blocks = resume_state["dry_blocks"]
+        b0 = resume_state["b0"]
+        r_d = len(piv_cols_loc)
+        if r_d:
+            Ud[:r_d] = torch.from_numpy(
+                resume_state["Uh"].astype(np.int32)).to(device)
+            pc_map[:r_d] = torch.tensor(piv_cols_loc, dtype=torch.int64,
+                                        device=device)
+    last_save = wtime()
     while b0 < n_s and r_d < na:
         b1 = min(n_s, b0 + bs)
         ri, ci, vi = _block_slice(rows_all, cols_all, vals_all, b0, b1)
@@ -761,6 +948,12 @@ def _blocked_device_loop(f, n_s, na, bs, rows_all, cols_all, vals_all,
         else:
             dry_blocks += 1
         b0 = b1
+        if (ckpt_path and b0 < n_s
+                and wtime() - last_save >= DENSE_CKPT_INTERVAL_S):
+            _save_dense_ckpt(ckpt_path, ckpt_meta, b0,
+                             Ud[:r_d].cpu().numpy().astype(np.int64),
+                             piv_cols_loc, piv_rows_glob, dry_blocks)
+            last_save = wtime()
         if (low_rank_possible and dry_blocks >= 1 and piv_cols_loc
                 and _low_rank_mode(opts, len(piv_cols_loc), b0, n_s)):
             Uh = Ud[:r_d].cpu().numpy().astype(np.int64)

@@ -1,2 +1,3 @@
 """Tensor code of the port: GF(p) elementwise ops, the exact matmul, the
-dense elimination, and the wrappers of the CUDA kernels."""
+dense elimination, the device sparse Schur update, the SpMV, and the
+wrappers of the CUDA kernels."""

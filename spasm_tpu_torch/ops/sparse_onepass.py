@@ -1,5 +1,5 @@
 """One-pass Schur update on the device: the port of
-``spasm_tpu/ops/sparse_onepass.py`` (without ``mesh``).
+``spasm_tpu/ops/sparse_onepass.py``.
 
 The host kernel (``csrc/schur_mod.c``) eliminates every pivot column from
 a row block B in one pass against a mutually reduced pivot block U*: each
@@ -22,6 +22,14 @@ per-row merge on the device:
 ``eliminate_onepass_device`` returns None, as the reference does, when a
 single minimal tile or the total padded work would exceed its budgets;
 the caller then falls back.
+
+With a ``mesh`` (a 1-D ``DeviceMesh``, one process a rank, every rank
+calling with the same matrices), each rank builds and merges only its row
+range of each class tile on its own device, compacts the kept slots, and
+all-gathers them, so that every rank assembles the same D.  The work
+budget counts each class's rows padded as the tiles of the reference's
+mesh path are (a multiple of the shard count), the same formula for the
+estimate and the tiles; the reference's estimate leaves that round-up out.
 """
 
 from __future__ import annotations
@@ -72,21 +80,31 @@ def _onepass_class(f: Field, b_cols, b_vals, hit_k, hit_c, hit_ok, u_cols,
 
 
 def _compact_class(tile_cols, tile_vals, keep):
-    """The kept slots as flat host (row, col, val) int64 arrays, row-major
-    (the reference's order)."""
+    """The kept slots as flat (row, col, val) int64 tensors on the tile's
+    device, row-major (the reference's order)."""
     rows = torch.nonzero(keep)[:, 0]
-    return (rows.cpu().numpy().astype(np.int64),
-            tile_cols[keep].cpu().numpy().astype(np.int64),
-            tile_vals[keep].cpu().numpy().astype(np.int64))
+    return (rows, tile_cols[keep].to(torch.int64),
+            tile_vals[keep].to(torch.int64))
+
+
+def _padded_rows(R: int, nsh: int) -> int:
+    """A class chunk's row count in the reference's budget: the power of 2
+    at or above R, at least 128, rounded up to a multiple of the shard
+    count."""
+    R_pad = max(_R_PAD, _ceil_pow2(R))
+    return -(-R_pad // nsh) * nsh
 
 
 def eliminate_onepass_device(f: Field, Ustar, piv_cols, B,
                              max_tile_slots: int = 1 << 27,
                              work_budget: int = 1 << 30,
                              min_class_rows: int = 2048, *,
-                             device="cuda", _stats: dict | None = None):
+                             device="cuda", mesh=None,
+                             _stats: dict | None = None):
     """Device one-pass Schur: D = B - B[:, piv_cols] @ U* (mod p), with
-    the class tiles on ``device``.
+    the class tiles on ``device``, or with a ``mesh`` on each rank's device
+    (``device`` must then name the mesh's device type), each rank merging
+    its row range of every tile.
 
     Ustar: scipy CSR, MUTUALLY REDUCED (unit pivots, no entries in other
     pivot columns: elimination.mutual_reduce).  B: scipy CSR.  Returns a
@@ -96,10 +114,19 @@ def eliminate_onepass_device(f: Field, Ustar, piv_cols, B,
     ``work_budget`` (the reference's formula, with its 128-row floor).
     Classes of fewer than ``min_class_rows`` rows run on the host kernel.
     ``_stats`` receives the reference's keys: classes, chunks,
-    device_calls (one merge launch each), host_fallback_rows, prep_s,
+    device_calls (this rank's merge launches), host_fallback_rows, prep_s,
     device_s and pull_s.
     """
     device = torch.device(device)
+    nsh, me = 1, 0
+    if mesh is not None:
+        from ..parallel.sparse_sharded import all_gather_rows, mesh_device
+
+        if mesh_device(mesh).type != device.type:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device_type}")
+        device = mesh_device(mesh)
+        nsh, me = mesh.size(), mesh.get_local_rank()
     Ustar = sp.csr_matrix(Ustar)
     B = sp.csr_matrix(B)
     q, m = B.shape
@@ -160,7 +187,7 @@ def eliminate_onepass_device(f: Field, Ustar, piv_cols, B,
             return None  # a single minimal tile cannot fit (pathological)
         for s in range(0, rows_c.size, r_cap):
             chunked.append((key, rows_c[s:s + r_cap]))
-    total_slots = sum(max(_R_PAD, _ceil_pow2(rc.size)) * (k[0] + k[1] * k[2])
+    total_slots = sum(_padded_rows(rc.size, nsh) * (k[0] + k[1] * k[2])
                       for k, rc in chunked)
     if total_slots > work_budget:
         return None  # padded merge work blew up (dense U*): fall back
@@ -168,8 +195,12 @@ def eliminate_onepass_device(f: Field, Ustar, piv_cols, B,
     def put(x):
         return torch.from_numpy(x).to(device)
 
-    for (Wb, H, Ku), rows_c in chunked:
+    for (Wb, H, Ku), rows_all_c in chunked:
         _t0 = time.perf_counter()
+        # this rank's contiguous part of the chunk's rows
+        per = -(-rows_all_c.size // nsh)
+        row0 = min(rows_all_c.size, me * per)
+        rows_c = rows_all_c[row0:row0 + per]
         R = rows_c.size
         L = lens[rows_c]
         total = int(L.sum())
@@ -209,17 +240,25 @@ def eliminate_onepass_device(f: Field, Ustar, piv_cols, B,
         hit_ok[hrow, hpos] = True
         _t1 = time.perf_counter()
         t_prep += _t1 - _t0
-        cols_d, vals_d, keep_d, cnt_d = _onepass_class(
-            f, put(b_cols), put(b_vals), put(hit_k), put(hit_c),
-            put(hit_ok), put(u_cols), put(u_vals), m)
-        dev_calls += 1
-        int(cnt_d)  # the device wall ends at this scalar read
+        if R:
+            cols_d, vals_d, keep_d, cnt_d = _onepass_class(
+                f, put(b_cols), put(b_vals), put(hit_k), put(hit_c),
+                put(hit_ok), put(u_cols), put(u_vals), m)
+            dev_calls += 1
+            int(cnt_d)  # the device wall ends at this scalar read
         _t2 = time.perf_counter()
         t_dev += _t2 - _t1
-        rk, ck, cv = _compact_class(cols_d, vals_d, keep_d)
-        out_rows_parts.append(rows_c[rk])
-        out_cols_parts.append(ck)
-        out_vals_parts.append(cv)
+        if R:
+            rk, ck, cv = _compact_class(cols_d, vals_d, keep_d)
+        else:
+            rk = ck = cv = torch.zeros(0, dtype=torch.int64, device=device)
+        if mesh is not None:
+            # every rank's kept slots, its rows offset to the whole chunk
+            rk, ck, cv = all_gather_rows(
+                torch.stack([rk + row0, ck, cv], dim=1), mesh).unbind(1)
+        out_rows_parts.append(rows_all_c[rk.cpu().numpy()])
+        out_cols_parts.append(ck.cpu().numpy())
+        out_vals_parts.append(cv.cpu().numpy())
         t_pull += time.perf_counter() - _t2
     # tiny classes: the host one-pass kernel on just those rows
     nhost = 0

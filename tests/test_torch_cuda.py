@@ -366,3 +366,86 @@ def test_load_lu_solves_on_the_card(card, tmp_path):
     before = cuda_panel.launches
     assert np.array_equal(stt.solve(loaded, b), stt.solve(fact, b))
     assert cuda_panel.launches > before
+
+
+# ---- checkpoint / resume, the mesh, SpMV on the card
+
+
+@pytest.mark.parametrize("p", [42013, 4294967291])
+def test_spmv_card_matches_cpu(p, card):
+    from spasm_tpu_torch.ops import spmv
+
+    f = field(p)
+    rng = np.random.default_rng(17)
+    A = SparseGFp.rand(f, 3000, 2000, 0.01, rng)
+    for op, n_in, n_out in (("xapy", A.n, A.m), ("axpy", A.m, A.n)):
+        x, y = f.rand(n_in, rng), f.rand(n_out, rng)
+        got, want = (getattr(spmv, op)(spmv.DeviceCOO.from_csr(A, device=d),
+                                       x, y) for d in (card, "cpu"))
+        assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+def test_dense_finish_resumes_on_the_card(card, tmp_path, monkeypatch):
+    # the device block loop saves its sidecar after every block, is
+    # stopped at its fourth block, and the resumed LU is the uninterrupted
+    # one (and the CPU's)
+    import importlib
+    import os
+
+    ech = importlib.import_module("spasm_tpu_torch.echelonize")
+    monkeypatch.setattr(dense, "HOST_CUTOFF", 1)
+    monkeypatch.setattr(ech, "DENSE_CKPT_INTERVAL_S", 0.0)
+    A = SparseGFp.rand(field(42013), 900, 1200, 0.2,
+                       np.random.default_rng(18))
+    kw = dict(dense_block_size=200)
+    want = lu_arrays(echelonize(A, device=card, **kw))
+    path = str(tmp_path / "card.npz")
+    real = dense.blocked_finish_step
+    calls = []
+
+    def stopping(*a, **k):
+        calls.append(1)
+        if len(calls) == 4:
+            raise RuntimeError("stopped")
+        return real(*a, **k)
+
+    monkeypatch.setattr(dense, "blocked_finish_step", stopping)
+    with pytest.raises(RuntimeError, match="stopped"):
+        echelonize(A, device=card, checkpoint=path, **kw)
+    monkeypatch.setattr(dense, "blocked_finish_step", real)
+    got = lu_arrays(echelonize(A, device=card, resume=path, **kw))
+    cpu = lu_arrays(echelonize(A, device="cpu", **kw))
+    assert not os.path.exists(path + ".dense")
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
+        assert np.array_equal(cpu[k], want[k]), k
+
+
+def test_mesh_of_one_rank_on_the_card(card):
+    # a one-process NCCL group: echelonize(mesh=) runs K3 on its class
+    # tiles and equals the single-device LU; distributed_rank runs K1
+    import torch.distributed as dist
+
+    from spasm_tpu_torch import rank
+    from spasm_tpu_torch.parallel import sharded
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = sharded.make_mesh(1, device_type="cuda")
+        A = simplex_boundary(16, 5)
+        before = cuda_merge.launches
+        got = lu_arrays(echelonize(A, mesh=mesh, device="cuda"))
+        assert cuda_merge.launches > before
+        f = field(42013)
+        X = f.rand((300, 260), np.random.default_rng(19))
+        X[200:] = 0
+        before = cuda_matmul.launches
+        r = sharded.distributed_rank(f, mesh, X, panel=32)
+        assert cuda_matmul.launches > before
+    finally:
+        dist.destroy_process_group()
+    want = lu_arrays(echelonize(A, device=card, device_sparse_min_nnz=1))
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
+    assert r == rank(SparseGFp.from_dense(X, f.p), device="cpu") == 200

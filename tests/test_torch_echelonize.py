@@ -162,18 +162,52 @@ def test_rank_and_interop(rng):
 
 @pytest.mark.parametrize("kw", [dict(checkpoint="x"), dict(resume="x"),
                                 dict(mesh=object()), "--num-devices"])
-def test_deferred_features_raise(kw, tmp_path):
-    A = stt.SparseGFp.from_dense([[1, 2], [3, 4]], 42013)
-    if kw == "--num-devices":   # the CLI's mesh flag
+def test_deferred_features_raise(kw, tmp_path, capsys):
+    """The four options that raised NotImplementedError until they were
+    ported (the test keeps its name): each now runs on the CPU and gives
+    the reference's result."""
+    from spasm_tpu_torch.parallel import multihost
+
+    A = SparseGFp.rand(F, 60, 50, 0.08, np.random.default_rng(3))
+    B = interop.sparse_from_reference(A)
+    want = interop.lu_arrays(st.echelonize(A))
+    path = str(tmp_path / "x")
+    if kw == "--num-devices":   # the CLI's mesh flag, one rank
         from spasm_tpu_torch.cli.main import main
 
-        path = str(tmp_path / "a.sms")
-        stt.save_sms(A, path)
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 10"):
-            main(["rank", "--device", "cpu", "--num-devices", "2", path])
+        stt.save_sms(B, path)
+        try:
+            assert main(["rank", "--device", "cpu", "--num-devices", "1",
+                         path]) == 0
+        finally:
+            stt.set_log(None)
+            torch.distributed.destroy_process_group()
+        assert f"rank = {want['r']}\n" in capsys.readouterr().err
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        stt.echelonize(A, device="cpu", **kw)
+    kw = dict(kw)
+    if "checkpoint" in kw:
+        kw["checkpoint"] = path
+    if "resume" in kw:
+        stt.echelonize(B, device="cpu", checkpoint=path, max_round=1)
+        kw["resume"] = path
+    if "mesh" in kw:
+        kw["mesh"] = multihost.global_mesh(device_type="cpu")
+    try:
+        got = interop.lu_arrays(stt.echelonize(B, device="cpu", **kw))
+    finally:
+        if "mesh" in kw:
+            torch.distributed.destroy_process_group()
+    if "checkpoint" in kw:
+        from spasm_tpu_torch import checkpoint as port_ckpt
+
+        assert port_ckpt.load_state(path)["field_p"] == F.p
+    if "mesh" in kw:
+        # a mesh takes the device sparse rounds, which keep the unreduced
+        # U blocks: the LU of device_sparse_min_nnz=1 on one device
+        want = interop.lu_arrays(
+            stt.echelonize(B, device="cpu", device_sparse_min_nnz=1))
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], k)
 
 
 def test_cuda_device_needs_a_card():

@@ -36,6 +36,10 @@ def test_import_and_readme_rank_without_jax():
         "assert r == 1, r\n"
         "from spasm_tpu_torch.ops import cuda_matmul, cuda_panel, _cuda\n"
         "from spasm_tpu_torch import certificate, checkpoint, interop\n"
+        "from spasm_tpu_torch.parallel import (multihost, sharded,\n"
+        "                                      sparse_sharded)\n"
+        "from spasm_tpu_torch.ops import spmv\n"
+        "from spasm_tpu_torch.utils import profiling\n"
         "from spasm_tpu_torch.cli import main as cli_main\n"
         "import spasm_tpu_torch.cli.__main__\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
@@ -145,9 +149,10 @@ TOP_EDITS = {
     "blocks": (),
     # certificate_rank_create(device=)
     "certificate": ("certificate_rank_create",),
-    # --device; --num-devices raises; the program's name
+    # --device; --num-devices under torchrun (rank 0 prints); the
+    # program's name
     "cli/main": ("<docstring>", "_common_flags", "_ech_opts", "_mesh",
-                 "main"),
+                 "tool_rank", "main"),
     "cli/__main__": (),
     "cli/__init__": (),
 }
