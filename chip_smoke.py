@@ -47,7 +47,19 @@ Phases, one line each:
            the ranks of d8 and
            the random matrix with the option on and off, with the launch
            counts; echelonize of d7 with the option, card against CPU
-  api      the public surface on the card: on the planted-rank flagship,
+  waves    the sort-based wave Schur update (ops/sparse_device) on the
+           card: round 0 of d7, random 30k and random 100000^2 d=2e-4
+           through eliminate_device as echelonize runs it (capacity 4,
+           then 16), held equal to the host kernel, timed host, card,
+           card, host (where both capacities overflow, on the pivot rows
+           of the levels the first one held), with the hits and kept
+           entries of each wave, the peak device memory and the sorts'
+           share of the device time; d8's round 0 once (finished,
+           overflow, or out of memory, which fails); echelonize of the
+           (29, 8) boundary, whose round 0 takes the device waves, against
+           the host Schur path on the card (ranks, row spaces); and
+           sharded_sparse_eliminate at world sizes 1 (NCCL) and 2 (gloo)
+  api     the public surface on the card: on the planted-rank flagship,
            echelonize(L=True), kernel (1024 rows, A @ K.T == 0 by host
            SpMVs), solve (x @ A == b; None outside the row space; K1 and
            K2 launched inside the first solve, which inverts the
@@ -109,7 +121,7 @@ import numpy as np
 import torch
 
 PHASES = ("build", "k1", "k2", "k3", "rref", "e2e", "echelon", "sparse",
-          "api", "resume", "mesh")
+          "waves", "api", "resume", "mesh")
 DEV = "cuda"
 
 # (n, k, m, p): the K1 shapes that are timed: 4096^3 (the kernels line),
@@ -168,6 +180,14 @@ K3_WIDE = (K3_SLOTS // 1040, 1040)
 # random matrix of the JAX package's tools/device_crossover.py
 D7, D8 = (22, 7, 116280), (26, 8, 1081575)
 RANDOM30K = (30000, 2e-4, 42)              # n, density, seed
+# the waves phase: round 0 of SparseGFp.rand(field(42013), n, n, density,
+# default_rng(seed)) beside d7's and random 30k's; and the case it
+# echelonizes through the device waves: the smallest simplex boundary
+# whose round-0 one-pass exceeds the card's 2**30 padded slots (no random
+# 100000^2 matrix of a seeded scan both reaches the waves on the card and
+# fits them: PERF.md section 4), with its rank
+RANDOM100K = (100000, 2e-4, 42)
+WAVES_E2E = (29, 8, 3108105)
 # the api phase: right-hand sides of gesv on the flagship (half in the row
 # space), the kernel of d8 (m - rank rows), and the case held card against
 # CPU: SparseGFp.rand(field(42013), n, n, density, default_rng(seed)) with
@@ -1071,6 +1091,407 @@ def phase_sparse(ctx):
         raise AssertionError(f"d7 echelonize card != cpu in {bad}")
 
 
+# ---------------- waves: the sort-based wave Schur update ----------------
+
+
+def round0_block(A):
+    """Round 0 of A as echelonize forms it: (field, U as SparseGFp, pivot
+    columns, levels, the remaining rows B as SparseGFp, and whether
+    mutual_reduce holds the block within its fill cap)."""
+    from spasm_tpu_torch import SparseGFp
+    from spasm_tpu_torch._host.elimination import mutual_reduce
+    from spasm_tpu_torch._host.pivots import find_structural_pivots
+    from spasm_tpu_torch.echelonize import _round_schur_estimate
+
+    f = A.field
+    prows, pcols, _ = find_structural_pivots(A)
+    _, S_rest, _, (Upart, _, levels) = _round_schur_estimate(
+        f, A.to_scipy(), prows, pcols)
+    ok = mutual_reduce(f, Upart, pcols, levels)[1]
+    U = SparseGFp.from_scipy(Upart, f.p, assume_canonical=True)
+    return f, U, pcols, levels, SparseGFp.from_scipy(S_rest, f.p), ok
+
+
+def level_prefix(U, pcols, levels, k: int):
+    """The pivot rows of the first k levels: the block whose waves are the
+    first k waves of the whole block."""
+    from spasm_tpu_torch import SparseGFp
+
+    sel = np.flatnonzero(np.asarray(levels) < k)
+    Us = U.to_scipy()[sel]
+    return (SparseGFp.from_scipy(Us, U.field.p, assume_canonical=True),
+            np.asarray(pcols)[sel], np.asarray(levels)[sel])
+
+
+def host_update(f, U, pcols, levels, B, ok):
+    """The host kernel's update of B: mutual_reduce +
+    eliminate_against_reduced where the block reduces, else the host
+    waves; as a SparseGFp."""
+    from spasm_tpu_torch import SparseGFp
+    from spasm_tpu_torch._host.elimination import (eliminate_against_reduced,
+                                                   mutual_reduce,
+                                                   wave_eliminate)
+
+    Us = U.to_scipy()
+    if ok:
+        Ustar, _ = mutual_reduce(f, Us, pcols, levels)
+        D = eliminate_against_reduced(f, Ustar, pcols, B.to_scipy(),
+                                      assume_canonical=True)[0]
+    else:
+        D = wave_eliminate(f, Us, pcols, levels, B.to_scipy(),
+                           assume_canonical=True)[0]
+    return SparseGFp.from_scipy(D, f.p)
+
+
+def card_waves(f, U, pcols, levels, B, cap_factor=4):
+    """eliminate_device on the card, ended by a synchronize: (result, wall
+    s, the waves' stats, peak device memory in bytes)."""
+    from spasm_tpu_torch.ops.sparse_device import eliminate_device
+
+    stats: dict = {}
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    D, wall_s = wall(lambda: eliminate_device(
+        f, U, pcols, levels, B, cap_factor=cap_factor, device=DEV,
+        _stats=stats))
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else None
+    return D, wall_s, stats, peak
+
+
+def sort_share(f, U, pcols, levels, B, cap_factor) -> dict:
+    """One more card run under torch.profiler: the device time of the
+    sorts (CUB's radix sort kernels) against all device time and the
+    wall."""
+    from torch.autograd import DeviceType
+
+    from spasm_tpu_torch.utils.profiling import trace
+
+    if DEV != "cuda":
+        return {}
+    with trace(work_dir("waves_trace")) as prof:
+        _, wall_s, _, _ = card_waves(f, U, pcols, levels, B, cap_factor)
+
+    def dev_us(e):
+        return (getattr(e, "self_device_time_total", None)
+                or getattr(e, "self_cuda_time_total", 0))
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in kernels) / 1e6
+    sort_s = sum(dev_us(e) for e in kernels if "Sort" in e.key) / 1e6
+    return dict(profiled_wall_s=wall_s, device_busy_s=round(busy, 4),
+                sort_device_s=round(sort_s, 4),
+                sort_share_of_wall=round(sort_s / wall_s, 4),
+                sort_share_of_device=round(sort_s / max(busy, 1e-9), 4))
+
+
+def waves_round(ctx, name, A) -> dict:
+    """(a): round 0 of A through eliminate_device on the card as echelonize
+    runs it (cap_factor 4, then 16 on overflow), then held equal to the
+    host kernel, timed host, card, card, host, on the whole block, or
+    where both capacities overflow on the pivot rows of the levels the
+    first capacity held (the first waves of the same round)."""
+    f, U, pcols, levels, B, ok = round0_block(A)
+    rec = dict(case=name, card=ctx["card"], S_rest=list(B.shape),
+               S_rest_nnz=B.nnz, U_rows=U.n, U_nnz=U.nnz,
+               Ku=int(U.row_lengths().max()), depth=int(levels.max()) + 1,
+               mutual_reduce_ok=bool(ok), tries=[])
+    block, cf = (U, pcols, levels), None
+    for factor in (4, 16):
+        D, wall_s, stats, peak = card_waves(f, U, pcols, levels, B, factor)
+        rec["tries"].append(dict(
+            cap_factor=factor, outcome="overflow" if D is None else "result",
+            wall_s=wall_s, hits=stats["hits"], kept=stats["kept"],
+            max_expansion=stats["max_expansion"],
+            overflow_wave=stats["overflow_wave"], peak_bytes=peak))
+        if D is not None:
+            cf = factor
+            break
+    if cf is None:
+        k = rec["tries"][0]["overflow_wave"]
+        block, cf = level_prefix(U, pcols, levels, k), 4
+        rec["held_on"] = f"the pivot rows of levels < {k}"
+        ok = mutual_reduce_ok(f, *block)
+    walls, outs = {"host": [], "card": []}, []
+    for side in ("host", "card", "card", "host"):
+        if side == "host":
+            out, wall_s = wall(lambda: host_update(f, *block, B, ok))
+        else:
+            out, wall_s, stats, peak = card_waves(f, *block, B, cf)
+        walls[side].append(wall_s)
+        outs.append(out)
+    rec.update(held_cap_factor=cf, host_s=walls["host"],
+               card_s=walls["card"], D_nnz=outs[0].nnz,
+               equal=all(o is not None and o == outs[0] for o in outs[1:]),
+               held_hits=stats["hits"], held_kept=stats["kept"],
+               held_peak_bytes=peak,
+               **sort_share(f, *block, B, cf))
+    emit("waves", part="round 0", **rec)
+    if not rec["equal"]:
+        raise AssertionError(f"{name}: the waves on the card != the host")
+    return dict(U=U, pcols=pcols, levels=levels, B=B, block=block,
+                D=outs[1])
+
+
+def mutual_reduce_ok(f, U, pcols, levels) -> bool:
+    from spasm_tpu_torch._host.elimination import mutual_reduce
+
+    return mutual_reduce(f, U.to_scipy(), pcols, levels)[1]
+
+
+def waves_d8(ctx) -> None:
+    """(b): d8's round 0 once through eliminate_device: it finishes (held
+    against the host kernel), overflows (None), or runs out of memory (the
+    phase fails)."""
+    cases = ctx.setdefault("cases", {})
+    if cases.get("d8") is None:
+        cases["d8"] = make_case("d8")
+    A = cases["d8"]
+    f, U, pcols, levels, B, ok = round0_block(A)
+    rec = dict(case=f"d8 boundary {D8[:2]}", card=ctx["card"],
+               S_rest_nnz=B.nnz, U_rows=U.n, depth=int(levels.max()) + 1)
+    try:
+        D, wall_s, stats, peak = card_waves(f, U, pcols, levels, B)
+    except torch.cuda.OutOfMemoryError as e:
+        emit("waves", part="d8 round 0", outcome="out of memory",
+             error=str(e)[:300], **rec)
+        raise
+    rec.update(outcome="overflow" if D is None else "finished",
+               wall_s=wall_s, hits=stats["hits"], kept=stats["kept"],
+               max_expansion=stats["max_expansion"], peak_bytes=peak)
+    if D is not None:
+        want, rec["host_s"] = wall(lambda: host_update(f, U, pcols, levels,
+                                                       B, ok))
+        rec.update(D_nnz=D.nnz, equal=D == want)
+    emit("waves", part="d8 round 0", **rec)
+    if rec.get("equal") is False:
+        raise AssertionError("d8: the waves on the card != the host")
+
+
+def waves_echelonize(ctx) -> None:
+    """(c): echelonize through the device waves, card against the same call
+    with the host Schur path (device_sparse_min_nnz=0): equal ranks and
+    equal row spaces of U; the log and the waves' results show that round
+    0 was the device waves'.  Where the LUs differ (the host path stores a
+    mutual-reduced block), the row spaces are held equal by the host waves'
+    residual of the first U's rows against the second U, which must be 0
+    (row space contained, ranks equal): what the equality of rref_of_U
+    states, without its full reduction, which exhausted a 96 GiB host on
+    the LUs of a random 100000^2 round of this kind."""
+    import importlib
+
+    from spasm_tpu_torch import echelonize, last_phase_stats
+    from spasm_tpu_torch._host.elimination import wave_eliminate
+    from spasm_tpu_torch._host.utils import logging as slog
+    from spasm_tpu_torch.interop import lu_arrays
+    from spasm_tpu_torch.ops import sparse_device, sparse_onepass
+
+    ech = importlib.import_module("spasm_tpu_torch.echelonize")
+    name, A = waves_e2e_case()
+    calls: list = []
+
+    def spy(mod, attr, tag):
+        real = getattr(mod, attr)
+
+        def timed(*a, **kw):
+            out, wall_s = wall(lambda: real(*a, **kw))
+            ok = out[1] if tag == "mutual_reduce" else out is not None
+            calls.append(dict(call=tag, wall_s=wall_s, result=bool(ok)))
+            return out
+        return mod, attr, real, timed
+
+    spies = [spy(sparse_device, "eliminate_device", "device waves"),
+             spy(sparse_onepass, "eliminate_onepass_device", "one-pass"),
+             spy(ech, "mutual_reduce", "mutual_reduce"),
+             spy(ech, "wave_eliminate", "host waves")]
+    runs = {}
+    for opt in (1, 0):
+        lines: list[str] = []
+        calls.clear()
+        slog.set_log(lines.append)
+        for mod, attr, _, timed in spies:
+            setattr(mod, attr, timed)
+        reset_launches()
+        try:
+            fact, wall_s = wall(lambda: echelonize(
+                A, device=DEV, device_sparse_min_nnz=opt, verbose=True))
+        finally:
+            slog.set_log(None)
+            for mod, attr, real, _ in spies:
+                setattr(mod, attr, real)
+        runs[opt] = dict(fact=fact, wall_s=wall_s, calls=list(calls),
+                         launches=read_launches(), lines=lines,
+                         phases=last_phase_stats())
+        if opt:
+            note_path(ctx, f"waves: {name} echelonize", runs[1]["launches"])
+    F1, F0 = runs[1]["fact"], runs[0]["fact"]
+    mismatched = lu_mismatch(lu_arrays(F1), lu_arrays(F0))
+    residual = None
+    if mismatched:
+        res, residual_s = wall(lambda: wave_eliminate(
+            A.field, F0.U.to_scipy(), F0.piv_cols, F0.levels,
+            F1.U.to_scipy())[0])
+        res.eliminate_zeros()
+        residual = dict(nnz=int(res.nnz), wall_s=residual_s)
+    lines = runs[1]["lines"]
+    first_schur = next((i for i, ln in enumerate(lines)
+                        if ln.startswith("Schur complement:")), None)
+    dense_at = next((i for i, ln in enumerate(lines)
+                     if "switching to dense finish" in ln), len(lines))
+    rec = dict(case=name, nnz=A.nnz, card=ctx["card"],
+               ranks=[F1.r, F0.r],
+               walls_s=[runs[o]["wall_s"] for o in (1, 0)],
+               calls=[runs[o]["calls"] for o in (1, 0)],
+               launches=[runs[o]["launches"] for o in (1, 0)],
+               phases=[runs[o]["phases"] for o in (1, 0)],
+               schur_lines=[ln for ln in lines if ln.startswith(
+                   ("[schur/device]", "Schur complement", "[echelonize] "
+                    "Schur complement too dense"))],
+               lu_mismatched=mismatched, U_nnz=[F1.U.nnz, F0.U.nnz],
+               residual_of_U=residual)
+    emit("waves", part="echelonize", **rec)
+    device = [c for c in runs[1]["calls"] if c["call"] == "device waves"]
+    waves_ran = (first_schur is not None and first_schur < dense_at
+                 and device and device[-1]["result"]
+                 and not any(c["call"] == "host waves"
+                             for c in runs[1]["calls"])
+                 and "[schur/device] one-pass unavailable; wave fallback"
+                 in lines[:first_schur])
+    if not waves_ran:
+        raise AssertionError(f"{name}: round 0 did not go through the "
+                             f"device waves: {rec['calls']}")
+    if F1.r != F0.r or F1.r != WAVES_E2E[2] or (
+            residual and residual["nnz"]):
+        raise AssertionError(f"{name}: device waves != host Schur path")
+
+
+def waves_mesh_work(mesh, inputs) -> dict:
+    """This rank's sharded_sparse_eliminate of the round (cap_factor 8,
+    then 32, as echelonize) and of its level prefix."""
+    from spasm_tpu_torch.interop import sparse_from_arrays
+    from spasm_tpu_torch.parallel.sparse_sharded import (
+        sharded_sparse_eliminate)
+
+    def sparse(a):
+        return sparse_from_arrays(*a)
+
+    out: dict = {"rank": mesh.get_local_rank()}
+    for key in ("round", "prefix"):   # prefix: the block (a) held
+        U, pcols, levels, B = inputs[key]
+        U, B = sparse(U), sparse(B)
+        got = []
+        for cf in ((8, 32) if key == "round" else (8,)):
+            D, wall_s = wall(lambda: sharded_sparse_eliminate(
+                B.field, mesh, U, pcols, levels, B, cap_factor=cf))
+            got.append(dict(cap_factor=cf, wall_s=wall_s,
+                            csr=None if D is None else (
+                                D.shape, D.indptr, D.indices, D.data)))
+        out[key] = got
+    return out
+
+
+def waves_child(rank: int, world: int, port: int, kn: dict, inp: str,
+                out: str) -> None:
+    """One gloo rank of the waves' mesh (the ranks share the card)."""
+    import torch.distributed as dist
+
+    from spasm_tpu_torch.parallel.sharded import make_mesh
+
+    globals().update(kn)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    if DEV == "cuda":
+        torch.cuda.set_device(0)
+    with open(inp, "rb") as fh:
+        inputs = pickle.load(fh)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        res = waves_mesh_work(make_mesh(world, device_type=DEV), inputs)
+    finally:
+        dist.destroy_process_group()
+    with open(out, "wb") as fh:
+        pickle.dump(res, fh)
+
+
+def waves_mesh(ctx, rnd) -> None:
+    """(d): sharded_sparse_eliminate of (a)'s 100000^2 round at world size
+    1 (NCCL, this process) and 2 (two gloo processes on the card): one
+    overflow decision on all ranks of a world, and on the block (a) held
+    the same matrix as eliminate_device."""
+    import torch.distributed as dist
+
+    from spasm_tpu_torch.parallel.sharded import make_mesh
+
+    def arrays(M):
+        return (M.field.p, M.shape, M.indptr, M.indices, M.data)
+
+    Up, pp, lp = rnd["block"]
+    inputs = dict(round=(arrays(rnd["U"]), rnd["pcols"], rnd["levels"],
+                         arrays(rnd["B"])),
+                  prefix=(arrays(Up), pp, lp, arrays(rnd["B"])))
+    want = rnd["D"]
+    for world in MESH_WORLDS:
+        if world == 1:
+            dist.init_process_group(
+                "nccl" if DEV == "cuda" else "gloo",
+                init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                world_size=1)
+            try:
+                backend = dist.get_backend()
+                ranks = [waves_mesh_work(make_mesh(1, device_type=DEV),
+                                         inputs)]
+            finally:
+                dist.destroy_process_group()
+        else:
+            backend = "gloo"
+            ranks = mesh_children(world, waves_child, inputs)
+        decisions = {tuple(t["csr"] is None for t in r["round"])
+                     for r in ranks}
+        for r in ranks:
+            got = r["prefix"][0]["csr"]
+            equal = got is not None and (
+                tuple(got[0]) == want.shape
+                and all(np.array_equal(g, w) for g, w in zip(
+                    got[1:], (want.indptr, want.indices, want.data))))
+            emit("waves", part="mesh", world=world, backend=backend,
+                 rank_of_mesh=r["rank"], card=ctx["card"],
+                 round_overflow=[t["csr"] is None for t in r["round"]],
+                 round_walls_s=[t["wall_s"] for t in r["round"]],
+                 held_wall_s=r["prefix"][0]["wall_s"], held_equal=equal)
+            if not equal:
+                raise AssertionError(f"world {world} rank {r['rank']}: "
+                                     "sharded waves != eliminate_device")
+        if len(decisions) != 1:
+            raise AssertionError(f"world {world}: the ranks' overflow "
+                                 f"decisions differ: {decisions}")
+
+
+def waves_100k_case():
+    n, d, seed = RANDOM100K
+    from spasm_tpu_torch import SparseGFp, field
+
+    return (f"random {n}^2 d={d} seed {seed}",
+            SparseGFp.rand(field(42013), n, n, d, np.random.default_rng(seed)))
+
+
+def waves_e2e_case():
+    from spasm_tpu_torch._host.fixtures import simplex_boundary
+
+    return (f"boundary {WAVES_E2E[:2]}", simplex_boundary(*WAVES_E2E[:2]))
+
+
+def phase_waves(ctx):
+    t_phase = time.perf_counter()
+    for name, make, _ in sparse_cases()[::2]:
+        waves_round(ctx, name, make())
+    rnd = waves_round(ctx, *waves_100k_case())
+    waves_d8(ctx)
+    waves_echelonize(ctx)
+    waves_mesh(ctx, rnd)
+    emit("waves", part="phase", card=ctx["card"],
+         wall_s=round(time.perf_counter() - t_phase, 3))
+
+
 def note_path(ctx, path: str, counts: dict) -> None:
     """Record each kernel's launches on one path of the run (the kernels
     line's ``launches_by_path``)."""
@@ -1605,15 +2026,24 @@ def mesh_child(rank: int, world: int, port: int, kn: dict,
         pickle.dump(res, fh)
 
 
-def mesh_children(world: int) -> list:
+def mesh_children(world: int, target=None, inputs=None) -> list:
+    """Run ``target`` (mesh_child by default) as ``world`` spawned gloo
+    ranks and return their pickled results in rank order; ``inputs``, if
+    given, reach each rank through a pickle file."""
     import multiprocessing as mp
 
-    d = work_dir(f"mesh_{world}")
+    target = target or mesh_child
+    d = work_dir(f"{target.__name__}_{world}")
+    extra = ()
+    if inputs is not None:
+        extra = (os.path.join(d, "inputs.pkl"),)
+        with open(extra[0], "wb") as fh:
+            pickle.dump(inputs, fh)
     port = free_port()
     outs = [os.path.join(d, f"rank{r}.pkl") for r in range(world)]
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=mesh_child, args=(r, world, port, knobs(),
-                                                  outs[r]))
+    procs = [ctx.Process(target=target, args=(r, world, port, knobs(),
+                                              *extra, outs[r]))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -1625,7 +2055,7 @@ def mesh_children(world: int) -> list:
             p.kill()
             p.join()
     if any(p.exitcode != 0 for p in procs):
-        raise AssertionError(f"mesh world {world}: exit codes "
+        raise AssertionError(f"{target.__name__} world {world}: exit codes "
                              f"{[p.exitcode for p in procs]}")
     res = []
     for o in outs:

@@ -14,9 +14,10 @@ The device is chosen by the caller: ``device="cuda"`` (the default) or
 ``device="cpu"`` by name.  Without a card, ``device="cuda"`` raises.
 
 With ``device_sparse_min_nnz=N`` a round whose remaining rows hold at
-least N nonzeros takes the device sparse Schur update
-(``ops/sparse_onepass.py``: the K3 merge on a card, its plain version on
-the CPU) instead of the host kernel, as in the reference.
+least N nonzeros takes the device sparse Schur update instead of the host
+kernel, as in the reference: the one-pass merge (``ops/sparse_onepass.py``:
+the K3 merge on a card, its plain version on the CPU), or where that is
+unavailable the sort-based waves (``ops/sparse_device.py``).
 
 ``opts.complete`` replaces the factorization by the canonical RREF of its
 row space, as in the reference (``solve.rref_of_U``).
@@ -54,7 +55,7 @@ from ._host.pivots import find_structural_pivots
 from ._host.sputil import dense_matmul_host, mod_reduce
 from ._host.utils.logging import log, push_verbose, wtime
 from .ops import dense as dense_ops
-from .ops import sparse_onepass
+from .ops import sparse_device, sparse_onepass
 from .parallel import sparse_sharded
 
 
@@ -659,14 +660,17 @@ def _dense_feasible(S, opts, device: torch.device) -> bool:
 def _device_sparse_schur(f: Field, mesh, Upart, pcols, levels, S_rest,
                          device: torch.device):
     """Round Schur update on ``device`` (the reference's function of the
-    same name): mutual-reduce the round's pivot block on the host, then
-    the one-pass batched merge of ``ops/sparse_onepass`` (with a mesh,
-    each rank merges its rows of every class tile), whose padded work may
-    reach 1 << 30 slots on a card and 1 << 27 on the CPU.  Where the block
-    does not reduce within its fill cap or the merge is over its budget,
-    the host waves eliminate against the unreduced block, on every rank
-    (the reference runs its device waves there; the Schur complement is
-    the same matrix).  A kernel that fails raises."""
+    same name, with its branches): mutual-reduce the round's pivot block on
+    the host, then the one-pass batched merge of ``ops/sparse_onepass``
+    (with a mesh, each rank merges its rows of every class tile), whose
+    padded work may reach 1 << 30 slots on a card and 1 << 27 on the CPU.
+    Where the block does not reduce within its fill cap or the merge is
+    over its budget, the sort-based waves eliminate against the unreduced
+    block on the device (``ops/sparse_device``; with a mesh,
+    ``sharded_sparse_eliminate``, each rank on its rows), and once more at
+    4x the capacity if they overflow.  Returns None when that overflows
+    too (every rank of a mesh alike): the caller's host path runs.  A
+    kernel, launch or allocation that fails raises."""
     budget = (1 << 30) if _on_accelerator(device) else (1 << 27)
     Ustar, ok = mutual_reduce(f, Upart, pcols, levels)
     if ok:
@@ -676,9 +680,21 @@ def _device_sparse_schur(f: Field, mesh, Upart, pcols, levels, S_rest,
         if D is not None:
             return D
     log("[schur/device] one-pass unavailable; wave fallback")
-    S_new, _ = wave_eliminate(f, Upart, pcols, levels, S_rest,
-                              assume_canonical=True)
-    return S_new
+    U = SparseGFp.from_scipy(Upart, f.p, assume_canonical=True)
+    B = SparseGFp.from_scipy(S_rest, f.p)
+    if mesh is not None:   # first cap_factor 8
+        waves = functools.partial(sparse_sharded.sharded_sparse_eliminate,
+                                  f, mesh)
+        retry = 32
+    else:                  # first cap_factor 4
+        waves = functools.partial(sparse_device.eliminate_device, f,
+                                  device=device)
+        retry = 16
+    out = waves(U, pcols, levels, B)
+    if out is None:
+        log("[schur/device] capacity overflow; retrying at 4x cap")
+        out = waves(U, pcols, levels, B, cap_factor=retry)
+    return None if out is None else out.to_scipy()
 
 
 def schur_estimate_density(f: Field, U_sp, piv_cols, levels, S_rest,

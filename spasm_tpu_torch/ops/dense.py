@@ -328,6 +328,10 @@ def extract_sparse(X: torch.Tensor):
             v.cpu().numpy().astype(np.int64))
 
 
+def count_nonzero_device(X: torch.Tensor) -> int:
+    return int(torch.count_nonzero(X))
+
+
 def _compact_nonpivot(na: int, Ud: torch.Tensor, pc_map: torch.Tensor,
                       r_d: int):
     """The NON-pivot columns of the accumulated mutual-RREF panel Ud[:r_d]:
@@ -360,6 +364,11 @@ def extract_u_csr(Ud: torch.Tensor, pc_map: torch.Tensor, r_d: int, na: int,
     return sp.csr_matrix((vals, (rows, cols)), shape=(r_d, na))
 
 
+# elements of the accumulated panel back-eliminated per K1 call (2**27:
+# one call at the flagship's 8192^2, 1 GiB for each int64 temporary)
+SUB_CHUNK = 1 << 27
+
+
 def blocked_finish_step(f, shape, panel: int, rows, cols, vals,
                         Ud: torch.Tensor, pc_map: torch.Tensor, r_d: int):
     """One step of the blocked dense finish: densify the block's COO slice,
@@ -381,7 +390,12 @@ def blocked_finish_step(f, shape, panel: int, rows, cols, vals,
         npc = pcol_of[:new_rank]
         if r_d:
             co = Ud[:r_d][:, npc]
-            Ud[:r_d] = modmul.sub(f, Ud[:r_d], modmatmul(f, co, newU))
+            # the subtraction's int64 temporaries are 8x Ud's int32 rows:
+            # bound them by updating SUB_CHUNK elements of Ud at a time
+            step = max(1, SUB_CHUNK // max(1, Ud.shape[1]))
+            for i in range(0, r_d, step):
+                j = min(r_d, i + step)
+                Ud[i:j] = modmul.sub(f, Ud[i:j], modmatmul(f, co[i:j], newU))
         Ud[r_d:r_d + new_rank] = newU
         pc_map[r_d:r_d + new_rank] = npc
     return r_d + new_rank, new_rank, prow_of, pcol_of

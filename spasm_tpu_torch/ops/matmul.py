@@ -64,3 +64,13 @@ def modmatmul(f, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
         return modmatmul_cuda(f, a, b)
     return modmatmul_plain(f, a, b)
+
+
+def modmatvec(f, a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """a @ x (mod p) for a (n, k) and x (k,), balanced int32."""
+    return modmatmul(f, a, x[:, None])[:, 0]
+
+
+def modvecmat(f, x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """x @ a (mod p): the reference's row-vector convention (xApy)."""
+    return modmatmul(f, x[None, :], a)[0]

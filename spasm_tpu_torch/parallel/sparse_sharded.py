@@ -18,16 +18,18 @@ results are combined by collectives over the mesh's process group:
 Both are bit-identical to the host ``pivots.fl_row_pivots`` /
 ``fl_col_pivots`` and do not depend on the number of ranks.
 
+``sharded_sparse_eliminate`` is the round's Schur update by the sort-based
+waves of ``ops/sparse_device.py``, each rank on its own rows; a capacity
+overflow on any rank is voted over the mesh (``all_reduce(MAX)``), so
+every rank returns None together and no rank waits in a collective that
+another has left.
+
 The collective helpers (``all_reduce``, ``all_gather_rows``, ``barrier``)
 take the place of the reference's ``_global_put`` / ``_global_get``.  On a
 gloo group, a collective of CUDA tensors is staged through host memory
 explicitly (copied to the CPU, reduced there, copied back), so that two
 ranks can share one card, which NCCL refuses; NCCL groups take the
 tensors where they are.
-
-``sharded_sparse_eliminate`` (the reference's sort-based waves) is not
-ported: where the one-pass update is unavailable, ``echelonize`` runs the
-host ``wave_eliminate``.
 """
 
 from __future__ import annotations
@@ -134,15 +136,15 @@ def shard_rows(B: SparseGFp, nshards: int, cap_per_shard: "int | None" = None):
     return rows_l, cols_l, vals_l, per
 
 
-def _my_shard(mesh, B: SparseGFp):
-    """This rank's (local rows, cols) of B's row shard as int64 tensors on
-    its device, with the live-entry mask and ``per``."""
-    rows_l, cols_l, _, per = shard_rows(B, mesh.size())
+def _my_shard(mesh, B: SparseGFp, cap_per_shard: "int | None" = None):
+    """This rank's (local rows, cols, vals) of B's row shard as int64
+    tensors on its device, with the live-entry mask and ``per``."""
+    rows_l, cols_l, vals_l, per = shard_rows(B, mesh.size(), cap_per_shard)
     me = mesh.get_local_rank()
     dev = mesh_device(mesh)
-    rows = torch.from_numpy(rows_l[me].astype(np.int64)).to(dev)
-    cols = torch.from_numpy(cols_l[me].astype(np.int64)).to(dev)
-    return rows, cols, rows < per, per
+    rows, cols, vals = (torch.from_numpy(x[me].astype(np.int64)).to(dev)
+                        for x in (rows_l, cols_l, vals_l))
+    return rows, cols, vals, rows < per, per
 
 
 def _scatter_min(size: int, index, src, device):
@@ -161,7 +163,7 @@ def sharded_fl_election(f: Field, mesh, B: SparseGFp):
     row id) among the rows whose leftmost entry is that column), whatever
     the number of ranks."""
     n, m = B.shape
-    rows, cols, live, per = _my_shard(mesh, B)
+    rows, cols, _, live, per = _my_shard(mesh, B)
     dev = rows.device
     one = live.to(torch.int64)
     rsafe = torch.where(live, rows, per)
@@ -200,7 +202,7 @@ def sharded_fl_col_election(f: Field, mesh, B: SparseGFp, col_selected,
     The masks are updated in place like ``fl_col_pivots``.  Returns
     (rows, cols) in decreasing-row order."""
     n, m = B.shape
-    rows, cols, live, per = _my_shard(mesh, B)
+    rows, cols, _, live, per = _my_shard(mesh, B)
     dev = rows.device
     me = mesh.get_local_rank()
     ru = np.ones(per + 1, np.int64)   # the padding row counts as used
@@ -238,3 +240,42 @@ def sharded_fl_col_election(f: Field, mesh, B: SparseGFp, col_selected,
     row_used[rows_c] = True
     col_selected[cols_c] = True
     return rows_c, cols_c
+
+
+# ---------------- the sort-based waves ----------------
+
+
+def sharded_sparse_eliminate(f: Field, mesh, U: SparseGFp, piv_cols, levels,
+                             B: SparseGFp, cap_factor: int = 8):
+    """Eliminate U's pivot columns from all rows of B, each rank running
+    the waves of ``ops/sparse_device`` on its row shard on its own device
+    (capacities per shard: ``cap`` a power of two of at least cap_factor x
+    the mean shard's entries and 1024, ``cap_hits`` cap / 8, at least
+    256, as in the reference).  Returns the eliminated SparseGFp, the same
+    on every rank, or None on every rank when any shard overflowed (the
+    caller falls back to the host waves)."""
+    from ..ops.sparse_device import (col_to_pivot, csr_from_sorted,
+                                     ell_pack, wave_eliminate_device)
+
+    nshards = mesh.size()
+    npiv, m = U.shape
+    if npiv == 0:
+        return B
+    per_nnz = max(1, -(-B.nnz // nshards))
+    cap = max(1024, 1 << int(cap_factor * per_nnz - 1).bit_length())
+    cap_hits = max(256, cap // 8)
+    rows, cols, vals, _, per = _my_shard(mesh, B, cap)
+    u_cols, u_vals = ell_pack(U)
+    depth = int(np.asarray(levels).max()) + 1
+    dev = rows.device
+    r, c, v, overflow = wave_eliminate_device(
+        f, cap, cap_hits, depth, rows, cols, vals, u_cols, u_vals, levels,
+        col_to_pivot(m, piv_cols), per, device=dev)
+    vote = torch.tensor([int(overflow)], dtype=torch.int64, device=dev)
+    if int(all_reduce(vote, mesh, dist.ReduceOp.MAX)[0]):
+        return None
+    # shards hold consecutive row ranges and each comes back sorted, so
+    # the rank-ordered concatenation is sorted by (row, col)
+    part = torch.stack([r + mesh.get_local_rank() * per, c, v.long()], 1)
+    out = all_gather_rows(part, mesh)
+    return csr_from_sorted(f, B.n, m, out[:, 0], out[:, 1], out[:, 2])

@@ -296,6 +296,33 @@ def test_echelonize_device_sparse_card_matches_cpu(card):
         assert np.array_equal(got[k], want[k]), k
 
 
+@pytest.mark.parametrize("p", [42013, 2147483629, 4294967291])
+def test_sparse_device_waves_card_matches_cpu(card, p):
+    # the sort-based waves on the card against the same call on CPU
+    # tensors: the same SparseGFp, and None at the same capacity
+    from spasm_tpu_torch._host.elimination import compute_levels
+    from spasm_tpu_torch._host.pivots import find_structural_pivots
+    from spasm_tpu_torch.ops.sparse_device import eliminate_device
+
+    f = field(p)
+    A = SparseGFp.rand(f, 300, 300, 0.05, np.random.default_rng(1))
+    prows, pcols, _ = find_structural_pivots(A)
+    S = A.to_scipy()
+    Up = S[prows].tocsr()
+    scale = f.inv(np.asarray(Up[np.arange(prows.size), pcols]).ravel())
+    Up.data = f.normalize(Up.data * np.repeat(scale, np.diff(Up.indptr)))
+    U = SparseGFp.from_scipy(Up, p)
+    levels = compute_levels(U, pcols)
+    B = SparseGFp.from_scipy(S[np.setdiff1d(np.arange(300), prows)], p)
+    for cf in (4, 16):
+        got = eliminate_device(f, U, pcols, levels, B, cap_factor=cf,
+                               device=card)
+        want = eliminate_device(f, U, pcols, levels, B, cap_factor=cf,
+                                device="cpu")
+        assert (got is None) == (want is None)
+        assert got is None or got == want
+
+
 def _solve_case():
     # max_round=0: the whole matrix goes to the dense finish, so the corner
     # block is (1100, 1100), past the host cutoff: the tensor path; rank

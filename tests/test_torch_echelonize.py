@@ -100,6 +100,27 @@ def test_device_mode_finish(rng, monkeypatch):
     assert any(s.endswith("(device)") for s in lines)
 
 
+def test_device_mode_finish_chunked_back_elimination(rng, monkeypatch):
+    # the device-mode block loop with the back-elimination of the
+    # accumulated panel split into row chunks (one row a chunk here, as a
+    # 64802^2 finish on the card splits it): the same LU as the reference
+    monkeypatch.setattr(ref_dense, "HOST_CUTOFF", 1)
+    monkeypatch.setattr(port_dense, "HOST_CUTOFF", 1)
+    monkeypatch.setattr(port_dense, "SUB_CHUNK", 64)
+    calls = []
+    real = port_dense.modmatmul
+
+    def counting(f, a, b):
+        calls.append(a.shape[0])
+        return real(f, a, b)
+
+    monkeypatch.setattr(port_dense, "modmatmul", counting)
+    A = SparseGFp.rand(F, 300, 200, 0.06, rng)
+    _, lines, _ = run_both(A, logs=True, max_round=0, dense_block_size=128)
+    assert any(s.endswith("(device)") for s in lines)
+    assert calls.count(1) >= 128
+
+
 def test_device_mode_low_rank_tail(rng, monkeypatch):
     # tall and low-rank: the block loop with per-block rank readbacks and
     # the randomized tail check.  The reference reads each block's rank
@@ -216,3 +237,45 @@ def test_cuda_device_needs_a_card():
     A = stt.SparseGFp.from_dense([[1, 2], [3, 4]], 42013)
     with pytest.raises((RuntimeError, AssertionError)):
         stt.rank(A)
+
+
+# round 0 of each breaks mutual_reduce's fill cap (a seeded scan at this
+# size): the device waves' first capacity overflows, and their retry at 4x
+# fits (zipf) or overflows too (random), when the host waves take the round
+WAVE_CASES = {
+    "retry_fits": (lambda: fx.zipf_sparse(F, 2000, 2000, 16.0, 2.0, 1),
+                   [False, True]),
+    "retry_overflows": (lambda: SparseGFp.rand(
+        F, 2000, 2000, 0.006, np.random.default_rng(0)), [False, False]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WAVE_CASES))
+def test_device_sparse_waves(case, monkeypatch):
+    # with device_sparse_min_nnz both packages take the same branches and
+    # give the same LU and the same log; the port's host waves run only
+    # after the device waves returned None twice
+    from spasm_tpu_torch.ops import sparse_device as port_sd
+
+    make, outcomes = WAVE_CASES[case]
+    real_device, real_host = port_sd.eliminate_device, port_ech.wave_eliminate
+    calls = []
+
+    def device_spy(*a, **kw):
+        out = real_device(*a, **kw)
+        calls.append(out is not None)
+        return out
+
+    def host_spy(*a, **kw):
+        calls.append("host")
+        return real_host(*a, **kw)
+
+    monkeypatch.setattr(port_sd, "eliminate_device", device_spy)
+    monkeypatch.setattr(port_ech, "wave_eliminate", host_spy)
+    got, _, port_lines = run_both(make(), logs=True,
+                                  device_sparse_min_nnz=1)
+    assert calls == outcomes + (["host"] if not outcomes[-1] else [])
+    i = port_lines.index("[schur/device] one-pass unavailable; wave fallback")
+    assert port_lines[i + 1] == ("[schur/device] capacity overflow; "
+                                 "retrying at 4x cap")
+    assert got["r"] > 0

@@ -197,3 +197,35 @@ def test_cuda_wrappers_raise_off_the_card(rng):
                      torch.zeros((2, 128, 128), dtype=torch.int8), 4, 4)):
         with pytest.raises(ValueError):
             call()
+
+
+@pytest.mark.parametrize("p", [5, 42013, 2147483629, 4294967291])
+@pytest.mark.parametrize("helper", ["modmatvec", "modvecmat",
+                                    "count_nonzero_device"])
+def test_helpers_match_reference(helper, p, rng):
+    from spasm_tpu.ops import dense as ref_dense
+
+    from spasm_tpu_torch.ops import dense as port_dense
+
+    f = field(p)
+    a = f.rand((70, 90), rng)
+    a[rng.random(a.shape) < 0.3] = 0
+    x, y = f.rand(90, rng), f.rand(70, rng)
+    ta = torch.from_numpy(a.astype(np.int32))
+    ja = jnp.asarray(a, jnp.int32)
+    if helper == "count_nonzero_device":
+        got = port_dense.count_nonzero_device(ta)
+        assert got == ref_dense.count_nonzero_device(ja) == np.count_nonzero(a)
+        return
+    v = x if helper == "modmatvec" else y
+    tv = torch.from_numpy(v.astype(np.int32))
+    jv = jnp.asarray(v, jnp.int32)
+    args_t, args_j = ((ta, tv), (ja, jv)) if helper == "modmatvec" else (
+        (tv, ta), (jv, ja))
+    got = getattr(mm, helper)(f, *args_t)
+    want = np.asarray(getattr(ref_matmul, helper)(f, *args_j))
+    assert got.dtype == torch.int32 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    oracle = (_oracle(f, a, x[:, None])[:, 0] if helper == "modmatvec"
+              else _oracle(f, y[None, :], a)[0])
+    np.testing.assert_array_equal(got.numpy(), oracle)

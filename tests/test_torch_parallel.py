@@ -20,6 +20,7 @@ import spasm_tpu as st
 from spasm_tpu import SparseGFp, field
 from spasm_tpu import elimination as E
 from spasm_tpu.echelonize import _round_schur_estimate
+from spasm_tpu.ops import sparse_device as ref_sparse_device
 from spasm_tpu.ops import sparse_onepass as ref_onepass
 from spasm_tpu.parallel import sharded as ref_sharded
 from spasm_tpu.parallel import sparse_sharded as ref_sparse_sharded
@@ -28,6 +29,7 @@ from spasm_tpu.pivots import (find_structural_pivots, fl_col_pivots,
 
 import spasm_tpu_torch as stt
 from spasm_tpu_torch import interop
+from spasm_tpu_torch.ops import sparse_device as port_sparse_device
 from spasm_tpu_torch.parallel import multihost
 import torch_dist_workers
 
@@ -230,6 +232,87 @@ def test_host_local_rows(ranks, world):
     per = -(-103 // world)
     assert [tuple(out["local_rows"]) for out in ranks(world)] == [
         (r * per, min((r + 1) * per, 103)) for r in range(world)]
+
+
+@pytest.fixture(scope="module")
+def waves_case():
+    """Two round blocks (U, pcols, levels, B) of the sort-based waves: a
+    random matrix's round 0, and a block whose remaining rows are followed
+    by twice as many empty ones (at world sizes 1-3 every entry lies in
+    rank 0's shard) and overflow the single device's first capacity."""
+    from test_torch_sparse_device import make_case
+
+    rnd = make_case(F, np.random.default_rng(5), 120, 120, 0.1)
+    U, pcols, levels, B = make_case(F, np.random.default_rng(0), 200, 200,
+                                    0.05)
+    Bs = B.to_scipy()
+    B_pad = SparseGFp.from_scipy(
+        sp.vstack([Bs, sp.csr_matrix((2 * B.n, B.m), dtype=Bs.dtype)]),
+        F.p)
+    return {"round": rnd, "skewed": (U, pcols, levels, B_pad)}
+
+
+@pytest.fixture(scope="module")
+def wave_ranks(waves_case, tmp_path_factory):
+    """world -> the port's per-rank waves results; the ranks are killed
+    and the test fails if they do not all return within 120 s (a rank
+    left waiting in a collective hangs)."""
+    workdir = str(tmp_path_factory.mktemp("waves"))
+    inputs = {"p": F.p}
+    for name, (U, pcols, levels, B) in waves_case.items():
+        inputs[name] = (_arrays(U), pcols, levels, _arrays(B))
+    started = {w: torch_dist_workers.Ranks(w, "waves_suite", inputs,
+                                           workdir, timeout=120.0)
+               for w in WORLDS}
+    done = {}
+
+    def get(world):
+        if world not in done:
+            done[world] = started[world].results()
+        return done[world]
+    yield get
+    for job in started.values():
+        job.close()
+
+
+def _csr_of(D):
+    return (np.asarray(D.indptr), np.asarray(D.indices), np.asarray(D.data))
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_waves_match_single_device(wave_ranks, waves_case, mesh8,
+                                           world):
+    U, pcols, levels, B = waves_case["round"]
+    single = ref_sparse_device.eliminate_device(F, U, pcols, levels, B,
+                                                cap_factor=8)
+    ref_mesh = ref_sparse_sharded.sharded_sparse_eliminate(
+        F, mesh8, U, pcols, levels, B)
+    assert single is not None and single == ref_mesh and single.nnz > 0
+    port_single = port_sparse_device.eliminate_device(
+        interop.sparse_from_reference(B).field,
+        interop.sparse_from_reference(U), pcols, levels,
+        interop.sparse_from_reference(B), cap_factor=8, device="cpu")
+    for out in wave_ranks(world):
+        for g, w, s in zip(out["round_8"], _csr_of(single),
+                           _csr_of(port_single)):
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(g, s)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_waves_overflow_on_one_rank_is_none_on_all(
+        wave_ranks, waves_case, world):
+    U, pcols, levels, B = waves_case["skewed"]
+    assert ref_sparse_device.eliminate_device(F, U, pcols, levels,
+                                              B) is None
+    want = ref_sparse_device.eliminate_device(F, U, pcols, levels, B,
+                                              cap_factor=16)
+    outs = wave_ranks(world)
+    assert len(outs) == world
+    for out in outs:
+        assert out["skewed_4"] is None
+        for g, w in zip(out["skewed_16"], _csr_of(want)):
+            np.testing.assert_array_equal(g, w)
 
 
 def test_initialize_single_process_is_a_noop():

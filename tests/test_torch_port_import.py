@@ -38,7 +38,7 @@ def test_import_and_readme_rank_without_jax():
         "from spasm_tpu_torch import certificate, checkpoint, interop\n"
         "from spasm_tpu_torch.parallel import (multihost, sharded,\n"
         "                                      sparse_sharded)\n"
-        "from spasm_tpu_torch.ops import spmv\n"
+        "from spasm_tpu_torch.ops import spmv, sparse_device\n"
         "from spasm_tpu_torch.utils import profiling\n"
         "from spasm_tpu_torch.cli import main as cli_main\n"
         "import spasm_tpu_torch.cli.__main__\n"
@@ -215,6 +215,25 @@ def test_host_module_matches_reference_outside_its_edits(mod):
     want = _unmasked_lines(os.path.join(ROOT, "spasm_tpu", mod + ".py"),
                            names)
     assert got == want, mod
+
+
+# functions of the JAX package's jax-using modules that the port copies
+# verbatim: (module under both packages, function)
+COPIED_FUNCTIONS = [("ops/sparse_device", "ell_pack")]
+
+
+@pytest.mark.parametrize("mod,name", COPIED_FUNCTIONS)
+def test_copied_function_matches_reference(mod, name):
+    import ast
+
+    def source(root):
+        with open(os.path.join(root, mod + ".py")) as fh:
+            src = fh.read()
+        node = next(n for n in ast.parse(src).body
+                    if isinstance(n, ast.FunctionDef) and n.name == name)
+        return ast.get_source_segment(src, node)
+
+    assert source(PKG) == source(os.path.join(ROOT, "spasm_tpu"))
 
 
 def _rewrite_imports(line):

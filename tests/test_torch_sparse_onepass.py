@@ -21,7 +21,7 @@ from spasm_tpu.pivots import find_structural_pivots
 
 import spasm_tpu_torch as stt
 from spasm_tpu_torch import interop
-from test_torch_echelonize import _untimed, run_both
+from test_torch_echelonize import run_both
 
 ref_onepass = importlib.import_module("spasm_tpu.ops.sparse_onepass")
 port_onepass = importlib.import_module("spasm_tpu_torch.ops.sparse_onepass")
@@ -180,17 +180,14 @@ def test_echelonize_device_sparse_irregular(case, onepass_kw):
 
 
 def test_echelonize_device_sparse_reduce_fails():
-    # mutual_reduce returns ok=False in round 0: the reference's device
-    # waves, the port's host waves, on the unreduced block.  The logs
-    # differ by one line: the reference's waves overflow their first
-    # capacity and log the retry.
+    # mutual_reduce returns ok=False in round 0: both packages run their
+    # device waves on the unreduced block, whose first capacity overflows
+    # and whose retry is logged; the logs agree line for line
     A = fx.subcomplex_boundary(20, 6, keep=0.8)
     _, ref_lines, port_lines = run_both(
-        A, logs=True, same_logs=False, device_sparse_min_nnz=1,
-        enable_dense=False)
-    assert [_untimed(s) for s in ref_lines if "capacity overflow" not in s
-            ] == [_untimed(s) for s in port_lines]
+        A, logs=True, device_sparse_min_nnz=1, enable_dense=False)
     assert any("wave fallback" in s for s in port_lines)
+    assert any("capacity overflow" in s for s in port_lines)
 
 
 def test_echelonize_device_sparse_over_budget(onepass_kw):

@@ -162,4 +162,28 @@ def parallel_suite(mesh, inputs):
     return out
 
 
-JOBS = {"parallel_suite": parallel_suite}
+def waves_suite(mesh, inputs):
+    """sharded_sparse_eliminate on this rank: a round at the default
+    capacity; a block whose rows all lie in rank 0's shard, at a capacity
+    that overflows on rank 0 alone (every rank must return None) and at
+    4x that capacity."""
+    from spasm_tpu_torch import field
+    from spasm_tpu_torch.parallel import sparse_sharded
+
+    f = field(inputs["p"])
+    world = mesh.size()
+    out = {}
+    for name, factors in (("round", (8,)), ("skewed", (4, 16))):
+        U, pcols, levels, B = inputs[name]
+        U, B = _sparse(U), _sparse(B)
+        for cf in factors:
+            # the per-shard capacity of cap_factor x (nnz / world) is the
+            # single device's of cf x nnz
+            D = sparse_sharded.sharded_sparse_eliminate(
+                f, mesh, U, pcols, levels, B,
+                cap_factor=cf * (world if name == "skewed" else 1))
+            out[f"{name}_{cf}"] = None if D is None else _csr(D)
+    return out
+
+
+JOBS = {"parallel_suite": parallel_suite, "waves_suite": waves_suite}
