@@ -14,14 +14,17 @@ Phases, one line each:
   k1       the mod-p matmul kernels against their plain versions, both on
            the card: the limb split byte for byte against pack_planes_plain
            (both operands, every limb count, strided views), the product
-           bit for bit against modmatmul_plain at the main path's shapes,
-           at n, k, m of 1 and one past a tile, every limb count and k
-           past one fold interval; at 4096^3 and each main-path shape the
-           wrapper call, the split launches alone and the product launch
-           alone are timed
+           bit for bit against modmatmul_plain at the main path's shapes
+           (those of the fused finish called as it calls K1: adding into
+           out= under a run flag, True and False), at n, k, m of 1 and one
+           past a tile, every limb count and k past one fold interval; at
+           each main-path shape and 4096^3 the wrapper call, the split
+           launches alone and the product launch alone are timed; the
+           kernels line's is the fused finish's group update
   k2       the panel elimination kernel against its plain version, both on
            the card, bit for bit in all six outputs (n = 1 .. 8192, c = 37
-           .. 4096, five primes; n = 1000 and 4096 timed, with the time
+           .. 4096, five primes; n = 1000, 1024 (the fused finish's
+           panel: the kernels line's) and 4096 timed, with the time
            of each phase of a step and a latency bound: the pivot steps
            times the shortest cluster barrier of one step)
   k3       the merge kernel against its plain version, both on the card,
@@ -38,6 +41,23 @@ Phases, one line each:
            matrix (rank 8192), a planted-rank variant (rank 7168) and the
            simplex boundary (22, 7) (rank 116280), with the launch counts
   echelon  echelonize on the card against device="cpu": equal LU
+  fused    the fused dense finish (ops/dense.fused_blocked_finish: the
+           block loop with its control flow on the card, one CUDA graph
+           per bucketed shape) on the flagship, its planted-rank variant,
+           the 3000 x 720 echelon case and the api phase's 4000^2 case:
+           the first call (eager), the second (the capture and a replay)
+           and warm calls (replays) timed, the graph's memory, the
+           finish's uploads and fused_blocked_finish under the sync
+           debugger ("error" from the second call on, the first call's
+           host reads counted), the replay's K1 / K2 launches from the
+           profiler's kernel events (a replay bypasses the wrappers), the LU
+           bit-equal to the streaming loop's (FUSED_BUDGET = 0) in blocks
+           of the fused loop's height and, for the last two, to
+           device="cpu"'s; at the default height the streaming LU is
+           bit-equal or, where it takes other pivot rows, of the same
+           rank and canonical RREF; K2's run flag against
+           _panel_eliminate on an all-zero and a live panel, and K1
+           accumulating under its run flag against the plain product
   sparse   the device sparse Schur path (device_sparse_min_nnz): round-0
            pairs of the d7 and d8 boundaries and the random 30k^2 matrix
            through the one-pass merge on the card against the host kernel
@@ -91,7 +111,9 @@ Phases, one line each:
 
 With ``--profile DIR``, e2e also traces one warm flagship rank through
 ``spasm_tpu_torch.utils.profiling.trace`` (torch.profiler): kernel time by
-name, the device's busy share, and a Chrome trace in DIR.
+name, the device's busy share, the device-to-host copies, the port's
+kernel launches, and a Chrome trace in DIR; the fused phase traces one
+warm flagship rank on each of the two block loops.
 
 Every comparison is exact (GF(p) arithmetic: tolerance 0); a mismatch
 raises.  The last three lines are the kernels' JSON (with each kernel's
@@ -120,22 +142,36 @@ import time
 import numpy as np
 import torch
 
-PHASES = ("build", "k1", "k2", "k3", "rref", "e2e", "echelon", "sparse",
-          "waves", "api", "resume", "mesh")
+PHASES = ("build", "k1", "k2", "k3", "rref", "e2e", "echelon", "fused",
+          "sparse", "waves", "api", "resume", "mesh")
 DEV = "cuda"
 
-# (n, k, m, p): the K1 shapes that are timed: 4096^3 (the kernels line),
-# then the shapes rref_inplace and blocked_finish_step give K1 on the
-# flagship: a panel's window update, the group's 512^2 resolve, the group
-# update, and a block against the accumulated RREF early, late and tall
+# (n, k, m, p, acc): the K1 shapes that are timed.  With acc the wrapper is
+# called as rref_inplace and the fused finish call it: adding into out=
+# under a run flag, held against the plain product added to out (and, with
+# the flag False, against out left as it was).  First the kernels line's
+# shape, the fused finish's group update at the flagship (1024-row blocks,
+# the most K1 time of its main path); then its other shapes there: a
+# panel's window correction, the windows of the earlier pivot rows, the
+# group's 512^2 resolve and its resolved rows, the block correction early
+# and late (K = 1024, 7168) and the back-elimination late; then the
+# streaming loop's 1000-row shapes (resume, checkpoint, low-rank mode) and
+# 4096^3
 K1_TIMED = [
-    (4096, 4096, 4096, 42013),
-    (1000, 128, 128, 42013),
-    (512, 512, 512, 42013),
-    (1000, 512, 8192, 42013),
-    (1000, 1000, 8192, 42013),
-    (1000, 7168, 8192, 42013),
-    (7168, 1000, 8192, 42013),
+    (1024, 512, 8192, 42013, True),
+    (1024, 128, 128, 42013, True),
+    (128, 128, 128, 42013, True),
+    (512, 512, 512, 42013, True),
+    (512, 512, 8192, 42013, True),
+    (1024, 1024, 8192, 42013, True),
+    (1024, 7168, 8192, 42013, True),
+    (7168, 1024, 8192, 42013, True),
+    (1000, 128, 128, 42013, True),
+    (1000, 512, 8192, 42013, True),
+    (1000, 1000, 8192, 42013, False),
+    (1000, 7168, 8192, 42013, False),
+    (7168, 1000, 8192, 42013, False),
+    (4096, 4096, 4096, 42013, False),
 ]
 # compared only
 K1_CASES = [
@@ -161,7 +197,7 @@ K1_CASES = [
 # and its planted-rank variant keeping the first PLANTED_KEEP rows
 FLAGSHIP_N, FLAGSHIP_NNZ, PLANTED_KEEP = 8192, 1_343_173, 7168
 K2_PRIMES = (5, 42013, 92681, 2147483629, 4294967291)
-K2_ROWS = (1000, 4096, 8192)
+K2_ROWS = (1000, 1024, 4096, 8192)
 # K3 comparison widths: powers of two, the widths at the edges of the
 # kernel's levels (32 keys a lane from 64 slots on, a row in one warp up to
 # 32 E = 1024 slots, in one CTA up to 16384; 16385 and 65536 take the
@@ -381,6 +417,7 @@ def phase_k1(ctx):
     from spasm_tpu_torch import field
     from spasm_tpu_torch._host.field import num_limbs
     from spasm_tpu_torch.ops import cuda_matmul as cm
+    from spasm_tpu_torch.ops import modmul
     from spasm_tpu_torch.ops.matmul import modmatmul_plain
 
     for nl in range(1, 6):
@@ -390,28 +427,42 @@ def phase_k1(ctx):
                                  f"says {cm.tiles(nl)}, the wrapper {want}")
     rng = np.random.default_rng(11)
     worst = worst_split = 0
-    cases = ([c + (False,) for c in K1_TIMED + K1_CASES]
-             + [(130, 260, 140, p, True) for p in K2_PRIMES])
-    for i, (n, k, m, p, views) in enumerate(cases):
+    cases = ([(n, k, m, p, False, acc) for n, k, m, p, acc in K1_TIMED]
+             + [c + (False, False) for c in K1_CASES]
+             + [(130, 260, 140, p, True, False) for p in K2_PRIMES])
+    for i, (n, k, m, p, views, acc) in enumerate(cases):
         f = field(p)
         nl = num_limbs(p)
         a, b = k1_operands(f, n, k, m, rng, views)
         sp = k1_split_check(f, a, b)
         ap, bp = sp["ap"], sp["bp"]
         want = modmatmul_plain(f, a, b)
-        err = max(max_abs_diff(cm.modmatmul_cuda(f, a, b), want),
-                  max_abs_diff(cm.product_cuda(f, ap, bp, n, m), want))
+        c0 = flag = None
+        if acc:
+            c0 = torch.from_numpy(f.rand((n, m), rng).astype(np.int32)).to(DEV)
+            flag = torch.ones((), dtype=torch.bool, device=DEV)
+            err = max(max_abs_diff(cm.modmatmul_cuda(
+                f, a, b, out=c0.clone(), run=flag), modmul.add(f, c0, want)),
+                max_abs_diff(cm.modmatmul_cuda(
+                    f, a, b, out=c0.clone(), run=~flag), c0))
+        else:
+            err = max_abs_diff(cm.modmatmul_cuda(f, a, b), want)
+        err = max(err, max_abs_diff(cm.product_cuda(f, ap, bp, n, m), want))
         sync()
         worst, worst_split = max(worst, err), max(worst_split, sp["err"])
-        rec = dict(shape=[n, k, m], p=p, limbs=nl, views=views,
+        rec = dict(shape=[n, k, m], p=p, limbs=nl, views=views, acc=acc,
                    folds=((ap.shape[2] // cm.BK - 1)
                           // (cm.fold_interval(nl) // cm.BK)),
                    split_max_abs_err=sp["err"], max_abs_err=err)
         if i < len(K1_TIMED):
             def wrapper():
+                if acc:   # out += a @ b, in place, under the run flag
+                    return cm.modmatmul_cuda(f, a, b, out=c0, run=flag)
                 return cm.modmatmul_cuda(f, a, b)
 
             def plain():
+                if acc:
+                    return modmul.add(f, c0, modmatmul_plain(f, a, b))
                 return modmatmul_plain(f, a, b)
 
             def split():
@@ -440,10 +491,11 @@ def phase_k1(ctx):
             modp_ops = 2.0 * n * k * m
             rec["modp_tops"] = modp_ops / (rec["ms"] * 1e-3) / 1e12
             # the kernel's method: nl**2 int8 plane products on the
-            # tensor cores; each operand read once, C written once
+            # tensor cores; each operand read once, C written once (and
+            # read once with acc)
             rec["bound_ms"], rec["bound_by"] = bound(
-                4.0 * (n * k + k * m + n * m), nl * nl * modp_ops,
-                INT8_OPS_S)
+                4.0 * (n * k + k * m + (1 + acc) * n * m),
+                nl * nl * modp_ops, INT8_OPS_S)
             # the split: the int32 operands read, the padded planes written
             rec["split_bound_ms"], _ = bound(
                 4.0 * (n * k + k * m) + ap.numel() + bp.numel(), 0,
@@ -470,7 +522,7 @@ def phase_k1(ctx):
             raise AssertionError(f"K1 differs from plain at {rec}")
         if k >= 30_000 and not rec["folds"]:
             raise AssertionError(f"no fold inside the k loop at {rec}")
-        del a, b, ap, bp, sp, want
+        del a, b, ap, bp, sp, want, c0
     ctx["k1_err"], ctx["k1s_err"] = worst, worst_split
 
 
@@ -550,6 +602,7 @@ def phase_k2(ctx):
     rng = np.random.default_rng(12)
     names = ("P", "G", "prow", "pcol", "pfound", "is_piv")
     # (n, c, p, kind): c = 37 takes the kernel's scalar (not int4) path;
+    # n = 1024 is the fused finish's panel, 1000 the streaming loop's;
     # n = 4096 and 8192 keep the rows in global memory; n = 192 is the
     # flagship's last block, 1 and 5 leave CTAs of the 16-CTA cluster
     # without rows; c = 1000 and 4096 are the widest panels
@@ -582,7 +635,8 @@ def phase_k2(ctx):
         worst = max(worst, err)
         rec = dict(n=n, c=c, p=p, kind=kind, j0=j0, npivcols=npivcols,
                    pivots=int(want[4].sum()), max_abs_err=err)
-        if c == 128 and p == 42013 and kind == "full" and n in (1000, 4096):
+        if c == 128 and p == 42013 and kind == "full" and n in (1000, 1024,
+                                                                4096):
             # timed in turns: kernel, plain, plain, kernel
             t = [time_ms(kernel, 20), time_ms(plain, 2), time_ms(plain, 2),
                  time_ms(kernel, 20)]
@@ -599,7 +653,7 @@ def phase_k2(ctx):
             rec["latency_bound_ms"] = (st["pivot_steps"] * st["min_barrier"]
                                        / 1e3)
             rec["step_us"] = st
-            if n == 1000:
+            if n == 1024:   # the fused finish's panels
                 ctx["k2_time"] = (rec["ms"], rec["plain_ms"],
                                   rec["bound_ms"], rec["bound_by"], None)
         emit("k2", **rec)
@@ -780,18 +834,33 @@ def timed_rank(A, reps: int = 1):
     return r, walls, last_phase_stats()
 
 
-def profile_rank(A, out_dir: str) -> None:
-    """Trace one rank(A) on the card: kernel time by name and busy share."""
+# the port's kernels by their function names, and the wrapper counts
+# their launches go to
+OWN_KERNELS = {"modmatmul_kernel": "modmatmul",
+               "split_rows_kernel": "modmatmul_split",
+               "split_transpose_kernel": "modmatmul_split",
+               "panel_cluster_kernel": "panel"}
+
+
+def profile_rank(A, out_dir, label: str = "flagship") -> dict:
+    """Trace one rank(A) on the card: kernel time by name, busy share,
+    device-to-host copies and the port's kernel launches.  Returns the
+    launches of the port's kernels as the profiler saw them run, by
+    wrapper count (a replayed graph launches them without the wrappers);
+    with no ``out_dir`` the trace goes to a scratch directory."""
     from torch.autograd import DeviceType
 
     from spasm_tpu_torch import rank
     from spasm_tpu_torch.utils.profiling import trace
 
+    out_dir = out_dir or work_dir("profile")
+    reset_launches()
     with trace(out_dir) as prof:
         t0 = time.perf_counter()
         rank(A, device=DEV)
-        torch.cuda.synchronize()
+        sync()
         wall = time.perf_counter() - t0
+    launches = read_launches()
 
     def dev_us(e):
         return (getattr(e, "self_device_time_total", None)
@@ -801,20 +870,29 @@ def profile_rank(A, out_dir: str) -> None:
                if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     busy_s = sum(dev_us(e) for e in kernels) / 1e6
     top = sorted(kernels, key=dev_us, reverse=True)[:15]
-    emit("profile", wall_s=round(wall, 4), device_busy_s=round(busy_s, 4),
+    events = prof.key_averages()
+    own = {nm: dict(calls=sum(e.count for e in kernels if nm in e.key),
+                    device_ms=round(sum(dev_us(e) for e in kernels
+                                        if nm in e.key) / 1e3, 3))
+           for nm in OWN_KERNELS}
+    ran = {k: 0 for k in ("modmatmul", "modmatmul_split", "panel")}
+    for nm, counted in OWN_KERNELS.items():
+        ran[counted] += own[nm]["calls"]
+    emit("profile", label=label, wall_s=round(wall, 4),
+         device_busy_s=round(busy_s, 4),
          busy_share=round(busy_s / wall, 4),
          kernel_launches=sum(e.count for e in kernels),
+         # device-to-host copies: the host reads of the run
+         d2h_copies=sum(e.count for e in events if "DtoH" in e.key),
+         port_launches=launches,
          elementwise_launches=sum(e.count for e in kernels
                                   if "elementwise" in e.key),
          # the port's own kernels, by their function names
-         own={nm: dict(calls=sum(e.count for e in kernels if nm in e.key),
-                       device_ms=round(sum(dev_us(e) for e in kernels
-                                           if nm in e.key) / 1e3, 3))
-              for nm in ("modmatmul_kernel", "split_rows_kernel",
-                         "split_transpose_kernel", "panel_cluster_kernel")},
+         own=own, profiled_launches=ran,
          top=[dict(name=e.key[:90], calls=e.count,
                    device_ms=round(dev_us(e) / 1e3, 3)) for e in top],
          trace=os.path.join(out_dir, f"trace_{os.getpid()}.json"))
+    return ran
 
 
 def phase_e2e(ctx):
@@ -837,7 +915,8 @@ def phase_e2e(ctx):
     ctx["launches"] = {"modmatmul": cuda_matmul.launches,
                        "modmatmul_split": cuda_matmul.split_launches,
                        "panel": cuda_panel.launches}
-    note_path(ctx, "e2e: flagship rank", ctx["launches"])
+    note_path(ctx, "e2e: flagship rank (a shape's first call: eager)",
+              ctx["launches"])
     r2, walls, stats = timed_rank(A, reps=2)
     emit("e2e", case=f"flagship {N}x{N} d=0.02 p=42013 seed 5", nnz=A.nnz,
          rank=r, expected=N, first_wall_s=round(first, 4),
@@ -899,6 +978,213 @@ def phase_echelon(ctx):
     if not (path_g and path_g == path_c and path_g[0].endswith("(device)")):
         raise AssertionError(f"the runs took different finishes: {path_g} "
                              f"vs {path_c}")
+
+
+# warm calls (replays) of each fused-phase case after the first (eager)
+# and the second (which captures)
+FUSED_WARM = 2
+
+
+def run_flag_checks() -> dict:
+    """(e): K2 with its run flag against _panel_eliminate with the same
+    flag, on an all-zero (1024, 128) panel (the fused finish's) and a live
+    one, both flags; K1
+    accumulating into out under its run flag (the group update's shape)
+    against the plain product added to out.  Max abs differences."""
+    from spasm_tpu_torch import field
+    from spasm_tpu_torch.ops import cuda_matmul, cuda_panel, dense, matmul
+
+    f = field(42013)
+    rng = np.random.default_rng(31)
+    live = f.rand((1024, 128), rng).astype(np.int32)
+    live[rng.random(live.shape) < 0.4] = 0
+    ispiv = torch.zeros(1024, dtype=torch.bool, device=DEV)
+    ispiv[::7] = True
+    out = {"k2": 0, "k1": 0}
+    for P in (np.zeros_like(live), live):
+        Pt = torch.from_numpy(P).to(DEV)
+        for run in (False, True):
+            flag = torch.tensor(run, device=DEV)
+            got = cuda_panel.panel_eliminate_cuda(f, 128, Pt, ispiv, 0,
+                                                  run=flag)
+            want = dense._panel_eliminate(f, Pt, ispiv, 0, 128, flag)
+            out["k2"] = max([out["k2"]] + [max_abs_diff(g.long(), w.long())
+                                           for g, w in zip(got, want)])
+    a, b, c = (torch.from_numpy(f.rand(sh, rng).astype(np.int32)).to(DEV)
+               for sh in ((1024, 512), (512, 8192), (1024, 8192)))
+    for run in (False, True):
+        flag = torch.tensor(run, device=DEV)
+        got = cuda_matmul.modmatmul_cuda(f, a, b, out=c.clone(), run=flag)
+        want = c.clone()
+        if run:
+            want = dense.modmul.add(f, c, matmul.modmatmul_plain(f, a, b))
+        out["k1"] = max(out["k1"], max_abs_diff(got, want))
+    return out
+
+
+def phase_fused(ctx):
+    """The fused dense finish (one CUDA graph a shape) on four cases."""
+    import warnings
+
+    from spasm_tpu_torch import SparseGFp, echelonize, field, last_phase_stats
+    from spasm_tpu_torch.interop import lu_arrays
+    from spasm_tpu_torch.ops import dense
+
+    flags = run_flag_checks()
+    emit("fused", part="run flags", card=ctx["card"], max_abs_err=flags)
+    if any(flags.values()):
+        raise AssertionError(f"a kernel's run flag != its plain version: "
+                             f"{flags}")
+    for key, k in (("k2_err", "k2"), ("k1_err", "k1")):
+        if key in ctx:
+            ctx[key] = max(ctx[key], flags[k])
+
+    f = field(42013)
+    A = SparseGFp.rand(f, FLAGSHIP_N, FLAGSHIP_N, 0.02,
+                       np.random.default_rng(5))
+    cases = [("flagship", A, {}, False),
+             ("planted", planted_rank(A, PLANTED_KEEP,
+                                      np.random.default_rng(6)), {}, False),
+             ("echelon 3000x720", SparseGFp.rand(
+                 f, 3000, 720, 0.05, np.random.default_rng(7)),
+              dict(dense_block_size=1500), True),
+             ("api_mid", api_mid_case(), {}, True)]
+    # the finish's uploads and fused_blocked_finish run under the sync
+    # debugger: "warn" for a first call (its syncs counted), "error" for a
+    # capture or a replay; the two reads after it are outside
+    watch = {"mode": "warn", "calls": 0, "syncs": 0, "sites": []}
+    real_up, real_fb = dense.upload, dense.fused_blocked_finish
+
+    def guarded(fn, count=False):
+        def run(*a, **k):
+            watch["calls"] += count
+            if DEV != "cuda":
+                return fn(*a, **k)
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode(watch["mode"])
+                try:
+                    return fn(*a, **k)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                    # not the notice that the debug mode is a prototype
+                    syncs = [x for x in seen if "synchronizing CUDA "
+                             "operation" in str(x.message)]
+                    watch["syncs"] += len(syncs)
+                    watch["sites"] += [f"{os.path.basename(x.filename)}:"
+                                       f"{x.lineno}" for x in syncs]
+        return run
+
+    def timed(M, kw, mode, facts=None):
+        watch.update(mode=mode, calls=0, syncs=0, sites=[])
+        dense.last_finish.clear()
+        reset_launches()
+        fact, w = wall(lambda: echelonize(M, device=DEV, **kw))
+        st = last_phase_stats()
+        rec = dict(wall_s=w, pivot_s=st["pivot_s"], finish_s=st["finish_s"],
+                   device_s=st["device_s"], fused_calls=watch["calls"],
+                   syncs=watch["syncs"], sync_sites=watch["sites"],
+                   launches=read_launches(),
+                   **dense.last_finish)
+        if facts is not None:
+            facts.append(fact)
+        return lu_arrays(fact), rec
+
+    dense.upload = guarded(real_up)
+    dense.fused_blocked_finish = guarded(real_fb, count=True)
+    try:
+        for name, M, kw, vs_cpu in cases:
+            dense.release_finish_graphs()
+            lus, recs, facts = {}, {}, []
+            # the first call of a shape runs eagerly (its host reads
+            # counted), the second captures and replays, later ones replay
+            lus["fused first"], recs["first"] = timed(M, kw, "warn", facts)
+            lus["fused second"], recs["second"] = timed(M, kw, "error")
+            for i in range(FUSED_WARM):
+                lus["fused warm"], recs[f"warm {i + 1}"] = timed(
+                    M, kw, "error")
+            replayed = None
+            if name == "flagship":
+                # a replay launches the kernels without their wrappers:
+                # its launches are the profiler's kernel events
+                replayed = profile_rank(M, ctx.get("profile_dir"),
+                                        "fused, warm")
+            # the streaming loop, by the reference's own lever; in blocks
+            # of the fused loop's height (its rows a block are
+            # _bucket(dense_block_size)), then of the default height
+            old = dense.FUSED_BUDGET
+            dense.FUSED_BUDGET = 0
+            same = dict(kw, dense_block_size=dense._bucket(
+                kw.get("dense_block_size", 1000)))
+            try:
+                lus["streaming, fused blocks"], recs["streaming 0"] = timed(
+                    M, same, "warn")
+                for i in range(2):
+                    lus["streaming"], recs[f"streaming {i + 1}"] = timed(
+                        M, kw, "warn", facts)
+                if name == "flagship" and ctx.get("profile_dir"):
+                    profile_rank(M, ctx["profile_dir"], "streaming, warm")
+            finally:
+                dense.FUSED_BUDGET = old
+            if vs_cpu:
+                lus["cpu"] = lu_arrays(echelonize(M, device="cpu", **kw))
+            base = lus["fused first"]
+            bad = {k: [a for a in base if not np.array_equal(v.get(a),
+                                                             base[a])]
+                   for k, v in lus.items()}
+            row_space = None
+            if bad["streaming"] and kw.get("dense_block_size", 1000) != \
+                    same["dense_block_size"]:
+                # other block heights may pick other pivot rows (as the
+                # reference's two loops do): then the same rank and the
+                # same canonical RREF of the row space
+                from spasm_tpu_torch import rref_of_U
+
+                row_space = bad.pop("streaming")
+                if not (facts[0].r == facts[-1].r and rref_of_U(facts[0])
+                        == rref_of_U(facts[-1])):
+                    raise AssertionError(f"{name}: the streaming loop's "
+                                         "row space differs")
+            if name == "flagship":
+                note_path(ctx, "fused: flagship rank, first (eager)",
+                          recs["first"]["launches"])
+                note_path(ctx, "fused: flagship rank, warm (graph replay; "
+                          "torch.profiler's kernel events)", replayed)
+                note_path(ctx, "fused: flagship rank, streaming loop",
+                          recs["streaming 1"]["launches"])
+            emit("fused", case=name, card=ctx["card"], nnz=M.nnz,
+                 rank=int(base["r"]), runs=recs, compared=list(lus),
+                 mismatched=bad,
+                 streaming_default_blocks=(
+                     "bit-equal" if row_space is None else
+                     f"pivot order differs in {row_space}; same rank and "
+                     "canonical RREF"))
+            if any(bad.values()):
+                raise AssertionError(f"{name}: LUs differ: {bad}")
+            if [recs[k]["fused_calls"] for k in recs] != [1] * (
+                    2 + FUSED_WARM) + [0, 0, 0]:
+                raise AssertionError(f"{name}: the finishes taken differ "
+                                     "from fused, fused.., streaming")
+            if DEV == "cuda":
+                graphs = [recs[k].get("graph") for k in recs
+                          if not k.startswith("streaming")]
+                if graphs != ["eager", "captured"] + [
+                        "replayed"] * FUSED_WARM:
+                    raise AssertionError(f"{name}: graph cache {graphs}")
+                if any(recs[k]["syncs"] for k in recs
+                       if k == "second" or k.startswith("warm")):
+                    raise AssertionError(f"{name}: a captured or replayed "
+                                         "finish synced")
+                if not all(recs["first"]["launches"][k]
+                           for k in ("modmatmul", "panel")):
+                    raise AssertionError(f"{name}: no K1 / K2 launch")
+                if replayed is not None and not all(
+                        replayed[k] for k in ("modmatmul", "panel")):
+                    raise AssertionError(f"{name}: the replay ran no K1 / "
+                                         f"K2: {replayed}")
+    finally:
+        dense.upload, dense.fused_blocked_finish = real_up, real_fb
+        dense.release_finish_graphs()
 
 
 def csr_equal(a, b) -> bool:
@@ -1035,7 +1321,7 @@ def onepass_pair(name, A):
 def phase_sparse(ctx):
     from spasm_tpu_torch import echelonize, last_phase_stats, rank
     from spasm_tpu_torch.interop import lu_arrays
-    from spasm_tpu_torch.ops import cuda_matmul, cuda_merge, cuda_panel
+    from spasm_tpu_torch.ops import cuda_matmul, cuda_merge, cuda_panel, dense
 
     merge_launches = 0
     for name, make, want in sparse_cases():
@@ -1048,8 +1334,11 @@ def phase_sparse(ctx):
             continue
         ranks = {}
         for opt in (0, 1):
-            # the main path's launch counts: reset right before, read
-            # right after
+            # each rank is its dense finish shape's first call, which runs
+            # eagerly (a second would capture, and a capture launches
+            # nothing); the main path's launch counts: reset right before,
+            # read right after
+            dense.release_finish_graphs()
             cuda_matmul.launches = cuda_matmul.split_launches = 0
             cuda_panel.launches = cuda_merge.launches = 0
             t0 = time.perf_counter()
@@ -2032,6 +2321,10 @@ def mesh_children(world: int, target=None, inputs=None) -> list:
     given, reach each rank through a pickle file."""
     import multiprocessing as mp
 
+    from spasm_tpu_torch import release_native_scratch
+
+    # the ranks share the card: no cached graph of this process holds it
+    release_native_scratch()
     target = target or mesh_child
     d = work_dir(f"{target.__name__}_{world}")
     extra = ()
@@ -2194,6 +2487,9 @@ def main(argv=None) -> int:
     for ph in PHASES:
         if ph in phases:
             globals()[f"phase_{ph}"](ctx)
+            # no cached graph of the fused finish keeps its card memory
+            # into the next phase (whose ranks may share the card)
+            spasm_tpu_torch.release_native_scratch()
     kernels = []
     launches = ctx.get("launches", {})
     for name, src, rep, tkey, ekey in (

@@ -41,7 +41,7 @@ from .certificate import (RankCertificate, certificate_rank_create,
                           certificate_rank_verify, factorization_verify,
                           rank_certificate_load, rank_certificate_save)
 from .checkpoint import load_lu, save_lu
-from ._host.native import release_native_scratch
+from ._host import native as _native
 from ._host.utils.logging import set_log, wtime
 
 __version__ = "0.1.0"
@@ -65,3 +65,13 @@ __all__ = [
     "release_native_scratch",
     "set_log", "wtime",
 ]
+
+
+def release_native_scratch():
+    """Release the host kernels' scratch (the reference's call) and the
+    cached CUDA graphs of the fused dense finish, with the device memory
+    their pools hold."""
+    from .ops.dense import release_finish_graphs
+
+    _native.release_native_scratch()
+    release_finish_graphs()

@@ -46,7 +46,13 @@
 //    CTA's time.  Nothing but wgmma writes an accumulator (they are
 //    cleared through the instruction's scale-d), or ptxas serializes the
 //    wgmma groups.  No main-path call is long enough for a fold before the
-//    end.
+//    end.  With accumulate, C holds an addend on entry and the first fold
+//    reads it: C += A @ B in place, with no elementwise pass after.
+//
+// Every launch takes an optional one-byte device flag (run): where it
+// reads 0, each CTA returns at once.  The dense finish runs its products
+// under device predicates (the reference's lax.cond) this way, with no
+// host read, inside one CUDA graph.
 //
 // What bounds it on this card: nl*nl int8 plane products on the tensor
 // cores (operations), 4 at the default p = 42013; the bytes of A, B and C
@@ -84,11 +90,13 @@ __device__ __forceinline__ uint32_t limb_word(int (&v)[4]) {
 
 // x: (r, c) int32 with element strides (sr, sc); out: (nl, rows, cols)
 // int8, rows % 8 == 0, cols % 128 == 0, zero outside (r, c).  A thread
-// takes four neighbouring columns of one row.
+// takes four neighbouring columns of one row.  run: as the product's (the
+// planes of a skipped product are not needed).
 __global__ void __launch_bounds__(256)
 split_rows_kernel(const int32_t* __restrict__ x, long long sr, long long sc,
                   int r, int c, int8_t* __restrict__ out, int rows, int cols,
-                  int nl) {
+                  int nl, const uint8_t* __restrict__ run) {
+    if (run != nullptr && *run == 0) return;
     const int row = blockIdx.x * 8 + threadIdx.y;
     const int col = (blockIdx.y * 32 + threadIdx.x) * 4;
     if (row >= rows || col >= cols) return;
@@ -119,7 +127,8 @@ split_rows_kernel(const int32_t* __restrict__ x, long long sr, long long sc,
 __global__ void __launch_bounds__(256)
 split_transpose_kernel(const int32_t* __restrict__ x, long long sr,
                        long long sc, int k, int m, int8_t* __restrict__ out,
-                       int mp, int kp, int nl) {
+                       int mp, int kp, int nl, const uint8_t* __restrict__ run) {
+    if (run != nullptr && *run == 0) return;
     // [limb][m][k word]; 33 words a row keep both phases free of bank
     // conflicts
     __shared__ uint32_t tile[5][32][33];
@@ -167,10 +176,12 @@ int spasm_modmatmul_tiles(int nl, int* out) {
 
 // The limb planes of x (r, c), element strides (sr, sc), into out:
 // (nl, rows, cols) as they are, or with transpose != 0 (nl, rows, cols)
-// holding x transposed (rows pad c, cols pad r).
+// holding x transposed (rows pad c, cols pad r).  run: null, or a device
+// flag that skips the launch's work where it reads 0.
 int spasm_modmatmul_split(const void* x, long long sr, long long sc, int r,
                           int c, void* out, int rows, int cols, int nl,
-                          int transpose, void* stream) {
+                          int transpose, const void* run, void* stream) {
+    const uint8_t* go = static_cast<const uint8_t*>(run);
     if (nl < 1 || nl > 5 || r <= 0 || c <= 0 || cols % kBK || rows % 32)
         return static_cast<int>(cudaErrorInvalidValue);
     const int32_t* src = static_cast<const int32_t*>(x);
@@ -182,23 +193,26 @@ int spasm_modmatmul_split(const void* x, long long sr, long long sc, int r,
             return static_cast<int>(cudaErrorInvalidValue);
         split_transpose_kernel<<<dim3(rows / 32, cols / kBK), dim3(32, 8), 0,
                                  st>>>(src, sr, sc, r, c, dst, rows, cols,
-                                       nl);
+                                       nl, go);
     } else {
         if (r > rows || c > cols)
             return static_cast<int>(cudaErrorInvalidValue);
         split_rows_kernel<<<dim3(rows / 8, cols / kBK), dim3(32, 8), 0, st>>>(
-            src, sr, sc, r, c, dst, rows, cols, nl);
+            src, sr, sc, r, c, dst, rows, cols, nl, go);
     }
     return static_cast<int>(cudaGetLastError());
 }
 
-// C = A @ B mod p from the packed planes (see modmatmul_kernel).
+// C = A @ B mod p from the packed planes, or C += A @ B with accumulate;
+// skipped where the device flag run reads 0 (see modmatmul_kernel).
 int spasm_modmatmul(const void* A, const void* B, void* C, int n, int m,
                     int kp, int np_, int mp, int nl, long long p,
-                    const void* weights, void* stream) {
+                    const void* weights, int accumulate, const void* run,
+                    void* stream) {
     if (nl < 1 || nl > 5) return static_cast<int>(cudaErrorInvalidValue);
     Product a{static_cast<const int8_t*>(A), static_cast<const int8_t*>(B),
               static_cast<int32_t*>(C), n, m, kp, np_, mp, p, Weights{},
+              accumulate, static_cast<const uint8_t*>(run),
               static_cast<cudaStream_t>(stream)};
     const long long* w = static_cast<const long long*>(weights);
     for (int s = 0; s < 2 * nl - 1; ++s) a.W.w[s] = w[s];
@@ -207,19 +221,22 @@ int spasm_modmatmul(const void* A, const void* B, void* C, int n, int m,
 
 // The whole of K1 in one call: both splits, then the product.  a (n, k)
 // and b (k, m) int32 with element strides; ap (nl, np, kp) and bp (nl, mp,
-// kp) int8 scratch; C (n, m) int32.
+// kp) int8 scratch; C (n, m) int32, overwritten, or added to with
+// accumulate; all three launches skip their work where run reads 0.
 int spasm_modmatmul_full(const void* a, long long sa0, long long sa1,
                          const void* b, long long sb0, long long sb1,
                          void* ap, void* bp, void* C, int n, int k, int m,
                          int np_, int kp, int mp, int nl, long long p,
-                         const void* weights, void* stream) {
-    int e = spasm_modmatmul_split(a, sa0, sa1, n, k, ap, np_, kp, nl, 0,
+                         const void* weights, int accumulate, const void* run,
+                         void* stream) {
+    int e = spasm_modmatmul_split(a, sa0, sa1, n, k, ap, np_, kp, nl, 0, run,
                                   stream);
     if (e) return e;
-    e = spasm_modmatmul_split(b, sb0, sb1, k, m, bp, mp, kp, nl, 1, stream);
+    e = spasm_modmatmul_split(b, sb0, sb1, k, m, bp, mp, kp, nl, 1, run,
+                              stream);
     if (e) return e;
     return spasm_modmatmul(ap, bp, C, n, m, kp, np_, mp, nl, p, weights,
-                           stream);
+                           accumulate, run, stream);
 }
 
 const char* spasm_cuda_error_string(int e) {

@@ -155,13 +155,19 @@ __device__ __forceinline__ void fold(const int (&acc)[ND][BN / 2], int32_t* C,
 // and Bp (NL, mp, kp) int8 of B transposed (both row-major with np, mp, kp
 // multiples of kBM, BN, kBK), as 2-D (NL * rows, kp) byte tensors with a
 // 128-byte-swizzled box of (rows of the tile, 128).  C: (n, m) int32.
-// fold_stages: k stages between two folds.
+// fold_stages: k stages between two folds.  accumulate != 0: C holds a
+// balanced addend on entry and the result is C + A @ B (the first fold
+// reads C).  run: null, or a device flag; where it reads 0 every CTA
+// returns at once and C is left as it is (a product the caller's device
+// predicate skips, as the reference's lax.cond does, with no host read).
 template <int NL>
 __global__ void __launch_bounds__(kThreads, 1)
 modmatmul_kernel(const __grid_constant__ CUtensorMap tmA,
                  const __grid_constant__ CUtensorMap tmB, int32_t* C, int n,
                  int m, int kp, int np_, int mp, long long p, double dinv,
-                 Weights W, int fold_stages) {
+                 Weights W, int fold_stages, int accumulate,
+                 const uint8_t* __restrict__ run) {
+    if (run != nullptr && *run == 0) return;
     using S = Shape<NL>;
     constexpr int BN = S::BN, ND = S::ND, STAGES = S::STAGES;
     extern __shared__ uint8_t smem_raw[];
@@ -218,7 +224,7 @@ modmatmul_kernel(const __grid_constant__ CUtensorMap tmA,
         const int col = col0 + 2 * (lane & 3);
         const uint64_t descA = wgmma_desc_k128(ring + wg * 64 * kBK);
         const uint64_t descB = wgmma_desc_k128(ring + S::A_BYTES);
-        bool folded = false;
+        bool folded = accumulate != 0;
         int since = 0, keep = 0;   // 0 at the start and after a fold
         for (int it = 0; it < nk; ++it) {
             const int s = it % STAGES;
@@ -310,6 +316,8 @@ struct Product {
     int n, m, kp, np_, mp;
     long long p;
     Weights W;
+    int accumulate;          // C += A @ B (C holds the addend)
+    const uint8_t* run;      // null, or a device flag: 0 skips the product
     cudaStream_t stream;
 };
 
@@ -332,7 +340,8 @@ cudaError_t launch(const Product& a) {
     dim3 grid(a.np_ / kBM, a.mp / S::BN);
     kern<<<grid, kThreads, S::SMEM, a.stream>>>(
         ta, tb, a.C, a.n, a.m, a.kp, a.np_, a.mp, a.p,
-        1.0 / static_cast<double>(a.p), a.W, S::KFLUSH / kBK);
+        1.0 / static_cast<double>(a.p), a.W, S::KFLUSH / kBK, a.accumulate,
+        a.run);
     return cudaGetLastError();
 }
 

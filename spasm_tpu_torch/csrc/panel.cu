@@ -63,6 +63,13 @@
 // With a stamps buffer, thread 0 of CTA 0 writes the global timer at the
 // ends of a step's phases (kPhases per column): chip_smoke.py's k2 phase
 // prints where a step's time goes.
+//
+// An optional one-byte device flag (run) is the reference's empty-panel
+// lax.cond (spasm_tpu/ops/dense.py:187-195) and its early exit: where it
+// reads 0 the kernel returns before its first cluster barrier, so the
+// dense finish decides on the card, inside one CUDA graph, which panels
+// run.  Under a stream capture the launch skips its residency query (the
+// eager run of the same shapes before the capture has made it).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -173,7 +180,13 @@ panel_cluster_kernel(int32_t* __restrict__ P, int32_t* __restrict__ G,
                      int32_t* __restrict__ prow, int32_t* __restrict__ pcol,
                      uint8_t* __restrict__ pfound, int n, int c, int j0,
                      int npivcols, long long p, Mod mod, int rpc,
-                     int in_smem, long long* __restrict__ stamps) {
+                     int in_smem, long long* __restrict__ stamps,
+                     const uint8_t* __restrict__ run) {
+    // the reference's empty-panel lax.cond, on the device: where the flag
+    // reads 0 every CTA leaves before its first cluster barrier, and the
+    // outputs are the caller's zeroed G / prow / pcol / pfound and the
+    // untouched is_piv
+    if (run != nullptr && *run == 0) return;
     using Vec = typename VecOf<V>::type;
     cg::cluster_group cluster = cg::this_cluster();
     const int rank = static_cast<int>(cluster.block_rank());
@@ -403,7 +416,7 @@ cudaError_t launch(int32_t* P, int32_t* G, uint8_t* ispiv,
                    int32_t* scr, int32_t* prow, int32_t* pcol,
                    uint8_t* pfound, int n, int c, int j0, int npivcols,
                    long long p, Mod mod, long long* stamps,
-                   cudaStream_t stream) {
+                   const uint8_t* run, cudaStream_t stream) {
     auto kern = panel_cluster_kernel<Mod, V>;
     const int rpc = n > 0 ? (n + kCluster - 1) / kCluster : 1;
     const size_t c4 = (static_cast<size_t>(c) + 3) & ~size_t{3};
@@ -433,13 +446,20 @@ cudaError_t launch(int32_t* P, int32_t* G, uint8_t* ispiv,
     cfg.stream = stream;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+    // the residency query is made outside a stream capture only: a graph
+    // is captured after an eager run of the same shapes has made it
+    cudaStreamCaptureStatus capturing = cudaStreamCaptureStatusNone;
+    err = cudaStreamIsCapturing(stream, &capturing);
     if (err != cudaSuccess) return err;
-    if (clusters < 1) return cudaErrorLaunchOutOfResources;
+    if (capturing == cudaStreamCaptureStatusNone) {
+        int clusters = 0;
+        err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+        if (err != cudaSuccess) return err;
+        if (clusters < 1) return cudaErrorLaunchOutOfResources;
+    }
     err = cudaLaunchKernelEx(&cfg, kern, P, G, ispiv, scr, prow, pcol,
                              pfound, n, c, j0, npivcols, p, mod, rpc,
-                             in_smem, stamps);
+                             in_smem, stamps, run);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
@@ -449,11 +469,14 @@ cudaError_t launch_mod(int vec4, int32_t* P, int32_t* G,
                        uint8_t* ispiv, int32_t* scr, int32_t* prow,
                        int32_t* pcol, uint8_t* pfound, int n, int c, int j0,
                        int npivcols, long long p, Mod mod,
-                       long long* stamps, cudaStream_t stream) {
+                       long long* stamps, const uint8_t* run,
+                       cudaStream_t stream) {
     return vec4 ? launch<Mod, 4>(P, G, ispiv, scr, prow, pcol, pfound, n,
-                                 c, j0, npivcols, p, mod, stamps, stream)
+                                 c, j0, npivcols, p, mod, stamps, run,
+                                 stream)
                 : launch<Mod, 1>(P, G, ispiv, scr, prow, pcol, pfound, n,
-                                 c, j0, npivcols, p, mod, stamps, stream);
+                                 c, j0, npivcols, p, mod, stamps, run,
+                                 stream);
 }
 
 }  // namespace
@@ -461,13 +484,16 @@ cudaError_t launch_mod(int vec4, int32_t* P, int32_t* G,
 // P and G: contiguous (n, c) int32, G zeroed; scr: int32 scratch of 2n
 // entries (the scales and the pivot column where the rows live in global
 // memory).  stamps: null, or int64 of c * kPhases entries, zeroed (see
-// above).  Returns cudaErrorLaunchOutOfResources where no cluster of
-// kCluster CTAs can be resident.
+// above).  run: null, or a one-byte device flag; where it reads 0 the
+// kernel does nothing (prow, pcol, pfound zeroed by the caller).  Returns
+// cudaErrorLaunchOutOfResources where no cluster of kCluster CTAs can be
+// resident.
 extern "C" int spasm_panel_eliminate(void* P, void* G, void* ispiv,
                                      void* scr, void* prow, void* pcol,
                                      void* pfound, int n, int c, int j0,
                                      int npivcols, long long p, void* stamps,
-                                     void* stream) {
+                                     const void* run, void* stream) {
+    auto* go = static_cast<const uint8_t*>(run);
     if (n < 0 || c <= 0 || c > 4096)
         return static_cast<int>(cudaErrorInvalidValue);
     const int vec4 = (c % 4 == 0)
@@ -485,8 +511,8 @@ extern "C" int spasm_panel_eliminate(void* P, void* G, void* ispiv,
     const cudaError_t err = p <= 65535
         ? launch_mod(vec4, Pi, Gi, Ii, Si, pr, pc, pf, n, c, j0, npivcols, p,
                      ModSmall{static_cast<int>(p),
-                              1.0f / static_cast<float>(p)}, ts, st)
+                              1.0f / static_cast<float>(p)}, ts, go, st)
         : launch_mod(vec4, Pi, Gi, Ii, Si, pr, pc, pf, n, c, j0, npivcols, p,
-                     ModWide{p, 1.0 / static_cast<double>(p)}, ts, st);
+                     ModWide{p, 1.0 / static_cast<double>(p)}, ts, go, st);
     return static_cast<int>(err);
 }

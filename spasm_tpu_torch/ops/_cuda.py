@@ -61,19 +61,19 @@ def _configure(lib):
     lib.spasm_modmatmul_tiles.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
     lib.spasm_modmatmul.restype = i32
     lib.spasm_modmatmul.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
-                                    i32, i64, vp, vp]
+                                    i32, i64, vp, i32, vp, vp]
     lib.spasm_modmatmul_full.restype = i32
     lib.spasm_modmatmul_full.argtypes = [vp, i64, i64, vp, i64, i64, vp, vp,
                                          vp, i32, i32, i32, i32, i32, i32,
-                                         i32, i64, vp, vp]
+                                         i32, i64, vp, i32, vp, vp]
     lib.spasm_modmatmul_split.restype = i32
     lib.spasm_modmatmul_split.argtypes = [vp, i64, i64, i32, i32, vp, i32,
-                                          i32, i32, i32, vp]
+                                          i32, i32, i32, vp, vp]
     lib.spasm_cuda_error_string.restype = ctypes.c_char_p
     lib.spasm_cuda_error_string.argtypes = [i32]
     lib.spasm_panel_eliminate.restype = i32
     lib.spasm_panel_eliminate.argtypes = [vp, vp, vp, vp, vp, vp, vp, i32,
-                                          i32, i32, i32, i64, vp, vp]
+                                          i32, i32, i32, i64, vp, vp, vp]
     lib.spasm_merge_scratch_rows.restype = i64
     lib.spasm_merge_scratch_rows.argtypes = [i64, i32, i32]
     lib.spasm_merge_rows.restype = i32
@@ -150,5 +150,27 @@ def on_device_of(t, call):
 
 
 def stream_of(t) -> int:
-    """The current CUDA stream of t's device, as a pointer-sized int."""
+    """The current CUDA stream of t's device, as a pointer-sized int (the
+    capture stream while a CUDA graph is being captured)."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def flag_of(run, t) -> "int | None":
+    """The device address of a one-byte flag (a 0-d bool tensor on t's
+    device) that a kernel reads to skip its work, or None for no flag."""
+    if run is None:
+        return None
+    if not (run.dtype == torch.bool and run.numel() == 1
+            and run.device == t.device):
+        raise ValueError("a kernel's run flag is a one-element bool tensor on "
+                         f"{t.device}, got {run.dtype} {tuple(run.shape)} on "
+                         f"{run.device}")
+    return run.data_ptr()
+
+
+def capturing() -> bool:
+    """Whether the current stream is capturing a CUDA graph: a launch then
+    only records a node, and the wrappers do not count it (a graph's
+    replays launch those kernels without them; ``chip_smoke.py`` counts
+    the replays' launches from the profiler's kernel events)."""
+    return torch.cuda.is_current_stream_capturing()

@@ -139,7 +139,7 @@ def split_cuda(x: torch.Tensor, nl: int, rows: int, cols: int,
     out = torch.empty((nl, rows, cols), dtype=torch.int8, device=x.device)
     rc = _cuda.on_device_of(x, lambda: _cuda.lib().spasm_modmatmul_split(
         x.data_ptr(), x.stride(0), x.stride(1), r, c, out.data_ptr(), rows,
-        cols, nl, int(transpose), _cuda.stream_of(x)))
+        cols, nl, int(transpose), None, _cuda.stream_of(x)))
     split_launches += 1
     _cuda.check(rc, "modmatmul split kernel")
     return out
@@ -166,16 +166,25 @@ def product_cuda(f, ap: torch.Tensor, bp: torch.Tensor, n: int,
     out = torch.empty((n, m), dtype=torch.int32, device=ap.device)
     rc = _cuda.on_device_of(ap, lambda: _cuda.lib().spasm_modmatmul(
         ap.data_ptr(), bp.data_ptr(), out.data_ptr(), n, m, kp, np_, mp, nl,
-        f.p, ctypes.cast(_weights(f.p, nl), ctypes.c_void_p),
+        f.p, ctypes.cast(_weights(f.p, nl), ctypes.c_void_p), 0, None,
         _cuda.stream_of(ap)))
     launches += 1
     _cuda.check(rc, "modmatmul kernel")
     return out
 
 
-def modmatmul_cuda(f, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def modmatmul_cuda(f, a: torch.Tensor, b: torch.Tensor,
+                   out: torch.Tensor = None,
+                   run: torch.Tensor = None) -> torch.Tensor:
     """C = a @ b (mod p): balanced int32 (n, k) and (k, m) CUDA tensors in
-    (any strides), balanced int32 (n, m) out."""
+    (any strides), balanced int32 (n, m) out.
+
+    With ``out`` (a contiguous balanced int32 (n, m) CUDA tensor, sharing
+    no memory with a or b) the product is added to it in place, out = out
+    + a @ b (mod p), and out is returned.  ``run`` (with ``out`` only), a
+    0-d bool tensor on the device, is read by the three kernels: where it
+    holds False they return at once and out is left as it is, so a
+    product under a device predicate costs no host read."""
     global launches, split_launches
     _check_operand(a, "modmatmul_cuda")
     _check_operand(b, "modmatmul_cuda")
@@ -187,10 +196,22 @@ def modmatmul_cuda(f, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     modmul.check_device_prime(f)
     n, k = a.shape
     m = b.shape[1]
+    if out is not None:
+        _check_operand(out, "modmatmul_cuda out")
+        if (tuple(out.shape) != (n, m) or not out.is_contiguous()
+                or out.device != a.device):
+            raise ValueError(f"out must be a contiguous ({n}, {m}) tensor on "
+                             f"{a.device}, got {tuple(out.shape)} on "
+                             f"{out.device}")
+    elif run is not None:
+        raise ValueError("modmatmul_cuda: run needs out")
+    flag = _cuda.flag_of(run, a)
     if n == 0 or m == 0:
-        return torch.empty((n, m), dtype=torch.int32, device=a.device)
+        return out if out is not None else torch.empty(
+            (n, m), dtype=torch.int32, device=a.device)
     if k == 0:
-        return torch.zeros((n, m), dtype=torch.int32, device=a.device)
+        return out if out is not None else torch.zeros(
+            (n, m), dtype=torch.int32, device=a.device)
     nl = num_limbs(f.p)
     np_, kp, mp = padded(n, k, m, nl)
     # the three launches (split a, split b, product) in one call into the
@@ -198,14 +219,17 @@ def modmatmul_cuda(f, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     # call is what they cost
     planes = torch.empty(nl * (np_ + mp) * kp, dtype=torch.int8,
                          device=a.device)
-    out = torch.empty((n, m), dtype=torch.int32, device=a.device)
+    acc = out is not None
+    if not acc:
+        out = torch.empty((n, m), dtype=torch.int32, device=a.device)
     ap = planes.data_ptr()
     rc = _cuda.on_device_of(a, lambda: _cuda.lib().spasm_modmatmul_full(
         a.data_ptr(), a.stride(0), a.stride(1), b.data_ptr(), b.stride(0),
         b.stride(1), ap, ap + nl * np_ * kp, out.data_ptr(), n, k, m, np_,
         kp, mp, nl, f.p, ctypes.cast(_weights(f.p, nl), ctypes.c_void_p),
-        _cuda.stream_of(a)))
-    split_launches += 2
-    launches += 1
+        int(acc), flag, _cuda.stream_of(a)))
     _cuda.check(rc, "modmatmul kernels")
+    if not _cuda.capturing():   # a capture records the launches, runs none
+        split_launches += 2
+        launches += 1
     return out

@@ -22,14 +22,18 @@ PHASES = ("scan and push", "cluster barrier", "pivot row staged",
 
 def panel_eliminate_cuda(f, npivcols: int, P: torch.Tensor,
                          is_piv_row: torch.Tensor, j0: int,
-                         stamps: torch.Tensor = None):
+                         stamps: torch.Tensor = None,
+                         run: torch.Tensor = None):
     """Drop-in for ``dense._panel_eliminate(f, P, is_piv_row, j0,
-    npivcols)`` on CUDA tensors: returns (P', G, prow, pcol, pfound,
+    npivcols, run)`` on CUDA tensors: returns (P', G, prow, pcol, pfound,
     is_piv') and leaves the inputs untouched.  P holds balanced values.
     Raises where the card cannot hold a cluster of 16 CTAs.  ``stamps``, a
     zeroed int64 (c, 1 + len(PHASES)) CUDA tensor, receives the global
     timer (ns) at the start of each step and at the end of each of its
-    PHASES (0 where a step had no pivot)."""
+    PHASES (0 where a step had no pivot).  ``run``, a 0-d bool tensor on
+    P's device, is read by the kernel: where it holds False the kernel
+    returns at once, and the outputs are P, zero G / prow / pcol, no pivot
+    found and is_piv_row (the reference's empty-panel ``lax.cond``)."""
     global launches
     if not (P.is_cuda and is_piv_row.device == P.device):
         raise ValueError("panel_eliminate_cuda needs P and is_piv_row on "
@@ -50,6 +54,7 @@ def panel_eliminate_cuda(f, npivcols: int, P: torch.Tensor,
             and tuple(stamps.shape) == (c, 1 + len(PHASES))):
         raise ValueError("stamps must be a contiguous int64 (c, "
                          f"{1 + len(PHASES)}) tensor on {P.device}")
+    flag = _cuda.flag_of(run, P)
     modmul.check_device_prime(f)
     # the kernel works in place on contiguous copies
     Pk = P.clone(memory_format=torch.contiguous_format)
@@ -64,8 +69,9 @@ def panel_eliminate_cuda(f, npivcols: int, P: torch.Tensor,
             Pk.data_ptr(), G.data_ptr(), ispiv.data_ptr(),
             scratch.data_ptr(), prow.data_ptr(), pcol.data_ptr(),
             pfound.data_ptr(), n, c, int(j0), int(npivcols), f.p,
-            None if stamps is None else stamps.data_ptr(),
+            None if stamps is None else stamps.data_ptr(), flag,
             _cuda.stream_of(P))
     _cuda.check(rc, "panel kernel")
-    launches += 1
+    if not _cuda.capturing():   # a capture records the launch, runs none
+        launches += 1
     return Pk, G, prow, pcol, pfound, ispiv

@@ -11,13 +11,28 @@ The blocked Gauss-Jordan elimination of the reference, on torch tensors:
   with the group's corrected pivot rows resolved by an exact Neumann
   product.
 
-The reference's ``lax.cond`` / ``while_loop`` become Python control flow
-that reads one flag or count back per panel.  Its shape bucketing and nnz
-padding are gone: they only avoided XLA recompiles, and zero padding is
-pivot-neutral, so the results are the same bits.
+The reference's control flow stays on the device, as its ``lax.cond`` /
+``while_loop`` do: the rank, the pivot slots, the empty-panel test, the
+group predicate ``rank > rank_in`` and the early exit are tensors, which
+the kernels read (K2 and K1 take a one-byte run flag and return at once
+where it is 0).  Captured into a CUDA graph, ``rref_inplace`` makes no host
+read.  Run eagerly, it reads the early exit and whether the group's
+columns are all zero once per group of panels, and issues no launch for a
+group that is dead or empty; the plain versions on the CPU also
+read their predicates on the host, as JAX's ``lax.cond`` evaluates on the
+CPU.  The bits are the same either way.
+
+``fused_blocked_finish`` is the reference's single-dispatch dense finish:
+the COO densified once, then the block loop.  On a card it becomes one
+CUDA graph with no host read, captured on the second call of a bucketed
+shape (``_bucket``, as the reference's ``jax.jit`` caches by bucket) and
+replayed after.
 """
 
 from __future__ import annotations
+
+import collections
+import time
 
 import numpy as np
 import scipy.sparse as sp
@@ -30,7 +45,7 @@ DEFAULT_PANEL = 128
 
 
 def _panel_eliminate(f, P: torch.Tensor, is_piv_row: torch.Tensor, j0: int,
-                     npivcols: int):
+                     npivcols: int, run: torch.Tensor = None):
     """Plain PyTorch Jordan elimination of the (n, c) panel P whose first
     column is global column j0; only global columns < npivcols may hold
     pivots.  The pivot of column jj is the first non-pivot row with a
@@ -40,7 +55,9 @@ def _panel_eliminate(f, P: torch.Tensor, is_piv_row: torch.Tensor, j0: int,
 
     Returns (P', G, prow, pcol, pfound, is_piv'); slot k of G, prow, pcol
     is the k-th pivot found, unused slots are 0 / 0 / False.  The inputs
-    are not modified."""
+    are not modified.  Where ``run`` (a 0-d bool tensor, read here on the
+    host) holds False nothing is eliminated: P, zero G / prow / pcol, no
+    pivot and is_piv_row come back, the reference's empty-panel branch."""
     n, c = P.shape
     dev = P.device
     P = P.clone()
@@ -49,6 +66,8 @@ def _panel_eliminate(f, P: torch.Tensor, is_piv_row: torch.Tensor, j0: int,
     prow = torch.zeros(c, dtype=torch.int32, device=dev)
     pcol = torch.zeros(c, dtype=torch.int32, device=dev)
     pfound = torch.zeros(c, dtype=torch.bool, device=dev)
+    if run is not None and not bool(run):
+        return P, G, prow, pcol, pfound, is_piv
     kk = 0
     for jj in range(c):
         if j0 + jj >= npivcols:
@@ -78,12 +97,12 @@ def _balanced(v: int, p: int) -> int:
     return v - p if v > p // 2 else v
 
 
-def _one_panel(f, P, is_piv, j0, npivcols):
+def _one_panel(f, P, is_piv, j0, npivcols, run=None):
     if P.is_cuda:
         from .cuda_panel import panel_eliminate_cuda
 
-        return panel_eliminate_cuda(f, npivcols, P, is_piv, j0)
-    return _panel_eliminate(f, P, is_piv, j0, npivcols)
+        return panel_eliminate_cuda(f, npivcols, P, is_piv, j0, run=run)
+    return _panel_eliminate(f, P, is_piv, j0, npivcols, run)
 
 
 # panels per full-width rank-c correction on CUDA: the K panels of a group
@@ -96,22 +115,36 @@ _FORCE_GROUP = None  # tests override to exercise grouping on the CPU
 
 
 def rref_inplace(f, X: torch.Tensor, npivcols: int,
-                 panel: int = DEFAULT_PANEL):
+                 panel: int = DEFAULT_PANEL, alive: torch.Tensor = None):
     """Blocked Jordan RREF of X (n, m) over GF(p).  Only the first
     ``npivcols`` columns are searched for pivots.
 
     Returns (R, rank, piv_row_of, piv_col_of, is_piv_row): R (n, m), rank
-    a Python int, ``piv_row_of[k]`` / ``piv_col_of[k]`` (min(n, npivcols),)
-    int64 tensors giving the k-th pivot in column order (-1 past rank), and
-    the (n,) pivot-row mask.  X itself is not modified.
+    a 0-d int32 tensor on X's device, ``piv_row_of[k]`` /
+    ``piv_col_of[k]`` (min(n, npivcols),) int64 tensors giving the k-th
+    pivot in column order (-1 past rank), and the (n,) pivot-row mask.  X
+    itself is not modified.  ``alive`` (a 0-d bool tensor, default True)
+    is the early exit's predicate on entry: False makes the whole RREF a
+    no-op.
 
     Panels run in groups of PANEL_GROUP on CUDA (1 on the CPU): within a
     group each panel sees the earlier panels' row operations only on its
     own column window and on its pivot rows, and the full-width update
     X += [G_1|..|G_K] @ [R_1;..;R_K] happens once per group.  This is exact,
-    so the grouping does not change the result."""
+    so the grouping does not change the result.
+
+    The control flow is the reference's, on the device: a panel's kernel
+    runs under ``any(P != 0) & alive``, the products of a panel's
+    corrections under its ``any(pfound)``, the group's under ``rank >
+    rank_in``, and ``alive`` becomes False once every row with a nonzero in
+    a pivot-eligible column is a pivot row.  The kernels read these flags.
+    Under a CUDA graph capture the host reads nothing and every group is
+    recorded; otherwise it reads ``alive`` and whether the group's columns
+    hold a nonzero once before each group, stops once ``alive`` is False
+    (the later groups would be no-ops) and skips an all-zero group."""
     n, m = X.shape
     dev = X.device
+    read_exit = not (X.is_cuda and torch.cuda.is_current_stream_capturing())
     nmax = min(n, npivcols)
     npan = -(-npivcols // panel)
     group = _FORCE_GROUP or (PANEL_GROUP if X.is_cuda else 1)
@@ -121,79 +154,90 @@ def rref_inplace(f, X: torch.Tensor, npivcols: int,
     Xp[:, :m] = X
     X = Xp
     is_piv = torch.zeros(n, dtype=torch.bool, device=dev)
-    prow_of = torch.full((nmax,), -1, dtype=torch.int64, device=dev)
-    pcol_of = torch.full((nmax,), -1, dtype=torch.int64, device=dev)
-    rank = 0
-    zeros_c = torch.zeros(panel, dtype=torch.int64, device=dev)
+    # slot nmax takes the writes of unused slots and is cut off at the end
+    # (the reference's scatter with mode="drop")
+    prow_of = torch.full((nmax + 1,), -1, dtype=torch.int64, device=dev)
+    pcol_of = torch.full((nmax + 1,), -1, dtype=torch.int64, device=dev)
+    rank = torch.zeros((), dtype=torch.int32, device=dev)
+    if alive is None:
+        alive = torch.ones((), dtype=torch.bool, device=dev)
+    slot = torch.arange(panel, device=dev)
     for gi in range(ngrp):
+        if read_exit:
+            # one read a group: stop once alive is False, and skip a group
+            # whose columns are all zero (its panels find no pivot and its
+            # update is a no-op), which the kernels would skip on their
+            # flags after a launch each
+            g0 = gi * group * panel
+            live, nonzero = torch.stack(
+                [alive, X[:, g0:g0 + group * panel].any()]).tolist()
+            if not live:
+                break
+            if not nonzero:
+                continue
         rank_in = rank
         Gs, prows_l, wins, found_l = [], [], [], []
         for k in range(group):
             j0 = (gi * group + k) * panel
             Xwin = X[:, j0:j0 + panel]
-            P = Xwin
+            # the window corrections are added in place: a copy of its own
+            P = Xwin if k == 0 else Xwin.clone(
+                memory_format=torch.contiguous_format)
             # corrected windows of the earlier panels' pivot rows at this
             # panel's columns: R_l|win = Xwin[prows_l] + sum_j C_lj R_j|win.
-            # A panel without pivots has G_l == 0 and adds nothing.
+            # A panel without pivots has G_l == 0 and adds nothing, so its
+            # products are skipped.
             Rwin = []
             for l in range(k):
-                rw = None
-                if found_l[l]:
-                    rw = Xwin[prows_l[l], :]
-                    for j in range(l):
-                        if found_l[j]:
-                            rw = modmul.add(
-                                f, rw, modmatmul(f, wins[l][j], Rwin[j]))
-                    P = modmul.add(f, P, modmatmul(f, Gs[l], rw))
+                rw = Xwin.index_select(0, prows_l[l])
+                for j in range(l):
+                    modmatmul(f, wins[l][j], Rwin[j], out=rw, run=found_l[j])
                 Rwin.append(rw)
-            # a window with no nonzero is a no-op panel: skip the kernel
-            if bool(P.any()):
-                _, G, prows, pcols, pfound, is_piv = _one_panel(
-                    f, P, is_piv, j0, npivcols)
-                prows, pcols = prows.long(), pcols.long()
-                nfound = int(pfound.sum())
-            else:
-                G = torch.zeros((n, panel), dtype=torch.int32, device=dev)
-                prows = pcols = zeros_c
-                nfound = 0
+                modmatmul(f, Gs[l], rw, out=P, run=found_l[l])
+            # a window with no nonzero is a no-op panel, and so is every
+            # panel once alive is False: the kernel returns at once
+            _, G, prows, pcols, pfound, is_piv = _one_panel(
+                f, P, is_piv, j0, npivcols, P.any() & alive)
+            prows, pcols = prows.long(), pcols.long()
             # C_kl coefficient blocks for the group-end resolve (unused
             # slots gather row 0; their Gcat columns are zero)
-            wins.append([Gs[l][prows, :] for l in range(k)])
+            wins.append([Gs[l].index_select(0, prows) for l in range(k)])
             Gs.append(G)
             prows_l.append(prows)
-            found_l.append(nfound)
+            found_l.append(pfound.any())
             # found slots are a prefix, in column order within the panel
-            prow_of[rank:rank + nfound] = prows[:nfound]
-            pcol_of[rank:rank + nfound] = j0 + pcols[:nfound]
-            rank += nfound
-        if rank > rank_in:   # else Gcat == 0 and X is unchanged
-            Gcat = torch.cat(Gs, dim=1)                    # (n, K*c)
-            Xrows = X[torch.cat(prows_l), :]
-            if group > 1:
-                Kc = group * panel
-                L = torch.zeros((Kc, Kc), dtype=torch.int32, device=dev)
-                for k in range(group):
-                    for l in range(k):
-                        L[k * panel:(k + 1) * panel,
-                          l * panel:(l + 1) * panel] = wins[k][l]
-                eye = torch.eye(Kc, dtype=torch.int32, device=dev)
-                T = modmul.add(f, eye, L)
-                Lp = L
-                for _ in range((group - 1).bit_length() - 1):
-                    Lp = modmatmul(f, Lp, Lp)
-                    T = modmatmul(f, modmul.add(f, eye, Lp), T)
-                Rcat = modmatmul(f, T, Xrows)              # (Kc, m_pad)
-            else:
-                Rcat = Xrows
-            X = modmul.add(f, X, modmatmul(f, Gcat, Rcat))
+            slots = torch.where(pfound, rank + slot, nmax)
+            prow_of.scatter_(0, slots, torch.where(pfound, prows, -1))
+            pcol_of.scatter_(0, slots, torch.where(pfound, j0 + pcols, -1))
+            rank = rank + pfound.sum(dtype=torch.int32)
+        # no pivot in the whole group: Gcat == 0 and X is unchanged
+        grew = rank > rank_in
+        Gcat = torch.cat(Gs, dim=1)                        # (n, K*c)
+        Xrows = X.index_select(0, torch.cat(prows_l))
+        if group > 1:
+            Kc = group * panel
+            L = torch.zeros((Kc, Kc), dtype=torch.int32, device=dev)
+            for k in range(group):
+                for l in range(k):
+                    L[k * panel:(k + 1) * panel,
+                      l * panel:(l + 1) * panel] = wins[k][l]
+            eye = torch.eye(Kc, dtype=torch.int32, device=dev)
+            T = modmul.add(f, eye, L)
+            Lp = L
+            for _ in range((group - 1).bit_length() - 1):
+                Lp = modmatmul(f, Lp, Lp, out=torch.zeros_like(Lp), run=grew)
+                # (I + Lp) T = T + Lp T
+                T = modmatmul(f, Lp, T, out=T.clone(), run=grew)
+            Rcat = modmatmul(f, T, Xrows, out=torch.zeros_like(Xrows),
+                             run=grew)                     # (Kc, m_pad)
+        else:
+            Rcat = Xrows
+        modmatmul(f, Gcat, Rcat, out=X, run=grew)
         # early exit: once every row with a nonzero in a pivot-eligible
         # column is a pivot row, the later groups are no-ops
-        if rank >= nmax:
-            break
         row_nz = (X[:, :npan * panel] != 0).any(dim=1)
-        if not bool((row_nz & ~is_piv).any()):
-            break
-    return X[:, :m], rank, prow_of, pcol_of, is_piv
+        alive = alive & (rank < nmax) & (row_nz & ~is_piv).any()
+    return X[:, :m], rank, prow_of[:nmax], pcol_of[:nmax], is_piv
 
 
 def _rref(f, X: torch.Tensor, npivcols: int, panel: int,
@@ -265,6 +309,7 @@ def rref(f, X, want_transform: bool = False, panel: int = DEFAULT_PANEL,
         Xd = modmul.normalize(f, torch.from_numpy(
             np.ascontiguousarray(Xn).astype(np.int64)).to(dev))
     R, rank, prow_of, pcol_of, _, T = _rref(f, Xd, m, panel, want_transform)
+    rank = int(rank)
     piv_rows = prow_of[:rank].cpu().numpy().astype(np.int64)
     piv_cols = pcol_of[:rank].cpu().numpy().astype(np.int64)
     qinv = np.full(m, -1, np.int64)
@@ -312,54 +357,43 @@ def _host_rref(f, X, want_transform: bool):
 def densify_coo(shape, rows, cols, vals, device):
     """Scatter COO entries (numpy or tensors) into a dense int32 tensor on
     ``device``; duplicates add, as ``.at[].add`` in the reference."""
-    out = torch.zeros(shape, dtype=torch.int32, device=device)
-    idx = (torch.as_tensor(rows, dtype=torch.int64).to(device),
-           torch.as_tensor(cols, dtype=torch.int64).to(device))
-    out.index_put_(idx, torch.as_tensor(vals).to(device, torch.int32),
-                   accumulate=True)
+    out = torch.empty(shape, dtype=torch.int32, device=device)
+    _densify_into(out, *(torch.as_tensor(x).to(device)
+                         for x in (rows, cols, vals)))
     return out
 
 
 def extract_sparse(X: torch.Tensor):
-    """(rows, cols, vals) numpy triples of the nonzeros of X."""
-    r, c = torch.nonzero(X, as_tuple=True)
-    v = X[r, c]
-    return (r.cpu().numpy().astype(np.int64), c.cpu().numpy().astype(np.int64),
-            v.cpu().numpy().astype(np.int64))
+    """(rows, cols, vals) numpy triples of the nonzeros of X, in one copy
+    to the host (after the count ``torch.nonzero`` reads)."""
+    rc = torch.nonzero(X)
+    out = torch.cat([rc, X[rc[:, 0], rc[:, 1]].long()[:, None]], dim=1)
+    r, c, v = out.cpu().numpy().T
+    return r.copy(), c.copy(), v.copy()
 
 
 def count_nonzero_device(X: torch.Tensor) -> int:
     return int(torch.count_nonzero(X))
 
 
-def _compact_nonpivot(na: int, Ud: torch.Tensor, pc_map: torch.Tensor,
-                      r_d: int):
-    """The NON-pivot columns of the accumulated mutual-RREF panel Ud[:r_d]:
-    in full mutual RREF every pivot column is a unit vector the host
-    already knows, so only this block carries information.  Returns
-    (compact (r_d, na - r_d), np_idx)."""
-    pmask = torch.zeros(na, dtype=torch.bool, device=Ud.device)
-    pmask[pc_map[:r_d]] = True
-    np_idx = torch.nonzero(~pmask, as_tuple=True)[0]
-    return Ud[:r_d, :na][:, np_idx], np_idx
-
-
 def extract_u_csr(Ud: torch.Tensor, pc_map: torch.Tensor, r_d: int, na: int,
                   piv_cols_loc):
     """Read the accumulated mutual-RREF panel back as scipy CSR (r_d, na):
     the unit pivot entries are synthesized on the host from
-    ``piv_cols_loc`` (slot order == Ud row order); only the non-pivot
-    columns are scanned and transferred."""
+    ``piv_cols_loc`` (slot order == Ud row order, == ``pc_map[:r_d]``);
+    only the non-pivot columns are scanned and transferred.  In full mutual
+    RREF every pivot column is a unit vector the host already knows, so
+    the non-pivot columns, known on the host too, carry all the rest."""
     eye_r = np.arange(r_d, dtype=np.int64)
     eye_c = np.asarray(piv_cols_loc, np.int64)
     if r_d >= na:  # no non-pivot columns: U is exactly the identity part
         return sp.csr_matrix((np.ones(r_d, np.int64), (eye_r, eye_c)),
                              shape=(r_d, na))
-    compact, np_idx = _compact_nonpivot(na, Ud, pc_map, r_d)
+    np_idx = np.setdiff1d(np.arange(na, dtype=np.int64), eye_c)
+    compact = Ud[:r_d].index_select(1, torch.from_numpy(np_idx).to(Ud.device))
     er, ec, ev = extract_sparse(compact)
-    ec = np_idx.cpu().numpy().astype(np.int64)[ec]
     rows = np.concatenate([eye_r, er])
-    cols = np.concatenate([eye_c, ec])
+    cols = np.concatenate([eye_c, np_idx[ec]])
     vals = np.concatenate([np.ones(r_d, np.int64), ev])
     return sp.csr_matrix((vals, (rows, cols)), shape=(r_d, na))
 
@@ -385,6 +419,7 @@ def blocked_finish_step(f, shape, panel: int, rows, cols, vals,
         coeff = X[:, pc_map[:r_d]]
         X = modmul.sub(f, X, modmatmul(f, coeff, Ud[:r_d]))
     R, new_rank, prow_of, pcol_of, _ = rref_inplace(f, X, shape[1], panel)
+    new_rank = int(new_rank)   # the streaming loop reads each block's rank
     if new_rank:
         newU = R[prow_of[:new_rank]]
         npc = pcol_of[:new_rank]
@@ -399,3 +434,208 @@ def blocked_finish_step(f, shape, panel: int, rows, cols, vals,
         Ud[r_d:r_d + new_rank] = newU
         pc_map[r_d:r_d + new_rank] = npc
     return r_d + new_rank, new_rank, prow_of, pcol_of
+
+
+# element-count cap for the fused finish: the densified matrix (n_pad x na)
+# must stay comfortably inside device memory next to the U panel and the
+# product transients (3e8 int32 elements = 1.2 GB; the reference's value)
+FUSED_BUDGET = 300_000_000
+
+
+def _bucket(x: int) -> int:
+    """Bucket the fused finish's shapes, as the reference does, so that a
+    graph is captured once per bucket: powers of two up to 1024, then
+    multiples of 1024."""
+    if x <= 1024:
+        b = 128
+        while b < x:
+            b <<= 1
+        return b
+    return -(-x // 1024) * 1024
+
+
+def upload(a, dtype, device) -> torch.Tensor:
+    """A host array on ``device``; to a card from pinned memory with no
+    synchronization."""
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype=dtype))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _densify_into(X: torch.Tensor, rows, cols, vals) -> None:
+    """X = 0, then the COO entries (tensors on X's device) added in."""
+    X.zero_()
+    X.view(-1).index_add_(0, rows.long() * X.shape[1] + cols.long(),
+                          vals.to(torch.int32))
+
+
+def _fused_body(f, X: torch.Tensor, npiv: int, bs: int, panel: int):
+    """The block loop of ``fused_blocked_finish`` on the dense (n_pad, na)
+    X, with no host read: every block runs, under the device predicate
+    ``r_d < npiv`` (the reference's while_loop condition), which the
+    kernels of a block read; the K of a block's products is static."""
+    n_pad, na = X.shape
+    dev = X.device
+    nblocks = n_pad // bs
+    nmax = min(bs, npiv)
+    cap = _bucket(min(n_pad, npiv)) + bs
+    Ud = torch.zeros((cap, na), dtype=torch.int32, device=dev)
+    pc_map = torch.zeros(cap, dtype=torch.int64, device=dev)
+    r_d = torch.zeros((), dtype=torch.int64, device=dev)
+    ranks = torch.zeros(nblocks, dtype=torch.int64, device=dev)
+    prows = torch.zeros((nblocks, bs), dtype=torch.int64, device=dev)
+    pcols = torch.zeros((nblocks, bs), dtype=torch.int64, device=dev)
+    slot = torch.arange(bs, device=dev)
+    step = max(1, SUB_CHUNK // na)
+    for b in range(nblocks):
+        # r_d <= b * bs, and the rows of Ud from r_d on are zero: the host
+        # knows a static K for both products of this block (the reference
+        # loops over KC-row chunks up to r_d on the device instead)
+        K = min(b * bs, cap)
+        live_blk = r_d < npiv
+        Xb = X[b * bs:(b + 1) * bs]
+        if K:
+            # empty pc_map slots gather column 0 against zero Ud rows
+            coeff = Xb.index_select(1, pc_map[:K])
+            Xb = Xb.clone()
+            modmatmul(f, modmul.neg(f, coeff), Ud[:K], out=Xb, run=live_blk)
+        R, new_rank, prow_of, pcol_of, _ = rref_inplace(f, Xb, npiv, panel,
+                                                        alive=live_blk)
+        if nmax < bs:
+            prow_of = torch.nn.functional.pad(prow_of, (0, bs - nmax),
+                                              value=-1)
+            pcol_of = torch.nn.functional.pad(pcol_of, (0, bs - nmax),
+                                              value=-1)
+        live = slot < new_rank
+        gather = torch.where(live, prow_of.clamp(0, bs - 1), 0)
+        newU = torch.where(live[:, None], R.index_select(0, gather), 0)
+        npc = torch.where(live, pcol_of.clamp(0, na - 1), 0)
+        if K:
+            # back-eliminate the live rows of Ud, SUB_CHUNK elements a call
+            nco = modmul.neg(f, torch.where(live[None, :],
+                                            Ud[:K].index_select(1, npc), 0))
+            for i in range(0, K, step):
+                j = min(K, i + step)
+                modmatmul(f, nco[i:j], newU, out=Ud[i:j], run=new_rank > 0)
+        # append at r_d (rows past new_rank of newU and of Ud are zero)
+        at = r_d + slot
+        Ud.index_copy_(0, at, newU)
+        pc_map.index_copy_(0, at, npc)
+        ranks[b] = new_rank
+        # a block the loop does not reach keeps the reference's zeros
+        prows[b] = torch.where(live_blk, prow_of, 0)
+        pcols[b] = torch.where(live_blk, pcol_of, 0)
+        r_d = r_d + new_rank
+    return Ud, pc_map, r_d, ranks, prows, pcols
+
+
+# CUDA graphs of the fused finish, by (p, device, n_pad, na, bs, panel, npiv,
+# panel group), least recently used first.  One holds in device memory its
+# static input (n_pad x na int32: 256 MiB at the flagship's 8192^2,
+# ``input_bytes``) and its private pool: the outputs (Ud, cap x na int32)
+# and every transient of one finish (``graph_bytes``).  A shape is captured
+# on its second call: ``_seen`` holds the keys met once, which hold no
+# memory.  ``release_finish_graphs`` frees both.
+GRAPH_CACHE_SIZE = 2
+_graphs: "collections.OrderedDict" = collections.OrderedDict()
+_seen: "collections.OrderedDict" = collections.OrderedDict()
+# how the last fused finish on a card ran: "graph" ("eager", "captured" or
+# "replayed"), capture_s, graph_bytes, input_bytes
+last_finish: dict = {}
+
+
+def release_finish_graphs() -> None:
+    """Free the cached CUDA graphs of the fused finish, and forget the
+    shapes met once."""
+    _graphs.clear()
+    _seen.clear()
+    if torch.cuda.is_initialized():
+        torch.cuda.empty_cache()
+
+
+def _fused_on_card(f, shape, npiv, bs, panel, rows, cols, vals):
+    dev = rows.device
+    group = _FORCE_GROUP or PANEL_GROUP
+    key = (f.p, dev.index, *shape, bs, panel, npiv, group)
+    entry = _graphs.get(key)
+    if entry is not None:
+        _graphs.move_to_end(key)
+        _densify_into(entry["X"], rows, cols, vals)
+        entry["graph"].replay()
+        last_finish.update(graph="replayed", capture_s=0.0,
+                           graph_bytes=entry["nbytes"],
+                           input_bytes=entry["X"].nbytes)
+        return entry["out"]
+    if key not in _seen:
+        # the first call of a shape runs eagerly: a process that finishes
+        # once (the CLI, a script's one rank()) pays no capture
+        _seen[key] = None
+        while len(_seen) > 4 * GRAPH_CACHE_SIZE:
+            _seen.popitem(last=False)
+        X = torch.empty(shape, dtype=torch.int32, device=dev)
+        _densify_into(X, rows, cols, vals)
+        last_finish.update(graph="eager", capture_s=0.0, graph_bytes=0,
+                           input_bytes=X.nbytes)
+        return _fused_body(f, X, npiv, bs, panel)
+    # the second: capture on a side stream (the first call was the warm-up
+    # PyTorch asks for), then replay on this one for the result
+    del _seen[key]
+    while len(_graphs) >= GRAPH_CACHE_SIZE:
+        _graphs.popitem(last=False)
+    cur = torch.cuda.current_stream(dev)
+    X = torch.empty(shape, dtype=torch.int32, device=dev)
+    _densify_into(X, rows, cols, vals)
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_reserved(dev)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            out = _fused_body(f, X, npiv, bs, panel)
+        finally:
+            graph.capture_end()
+    cur.wait_stream(side)
+    nbytes = torch.cuda.memory_reserved(dev) - before
+    _graphs[key] = dict(graph=graph, X=X, out=out, nbytes=nbytes)
+    last_finish.update(graph="captured",
+                       capture_s=time.perf_counter() - t0,
+                       graph_bytes=nbytes, input_bytes=X.nbytes)
+    graph.replay()
+    return out
+
+
+def fused_blocked_finish(f, shape, npiv: int, bs: int, panel: int, rows,
+                         cols, vals):
+    """The entire blocked dense finish with no host read (the reference's
+    single-dispatch ``fused_blocked_finish``): densify the COO once into
+    (n_pad, na), then the loop over row blocks of ``bs`` rows, each
+    eliminated against the accumulated mutual-RREF panel, Jordan-RREF'd,
+    back-eliminated into the panel and appended.  Same math as
+    ``blocked_finish_step`` (the streaming loop, kept for low-rank mode,
+    resume, checkpoints and inputs over FUSED_BUDGET).
+
+    shape = (n_pad, na) with n_pad a multiple of bs; npiv <= na is the true
+    column count: only those columns hold pivots, and once they all do the
+    later blocks are no-ops.  rows, cols, vals: the COO as tensors on the
+    device.  Returns (Ud, pc_map, r_d, ranks, prows, pcols), tensors on
+    the device: Ud (cap, na) with pc_map (cap,) and r_d for
+    ``extract_u_csr``, ranks (nblocks,), prows / pcols (nblocks, bs) the
+    per-block pivots (slot order = pivot-column order within the block).
+
+    On a card the loop becomes one CUDA graph per (p, shape, npiv, bs,
+    panel, panel group), cached (``GRAPH_CACHE_SIZE``): the first call of a
+    shape runs the loop eagerly, the second captures it and replays, and
+    later ones densify into the graph's static input and replay.  The
+    tensors a replay returns belong to the graph: the next replay of that
+    shape overwrites them."""
+    if rows.is_cuda:
+        # the capture and the replay use the current device's streams
+        with torch.cuda.device(rows.device):
+            return _fused_on_card(f, shape, npiv, bs, panel, rows, cols,
+                                  vals)
+    X = torch.empty(shape, dtype=torch.int32, device=rows.device)
+    _densify_into(X, rows, cols, vals)
+    return _fused_body(f, X, npiv, bs, panel)

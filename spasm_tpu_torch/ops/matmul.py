@@ -56,14 +56,28 @@ def modmatmul_plain(f, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc.to(torch.int32)
 
 
-def modmatmul(f, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def modmatmul(f, a: torch.Tensor, b: torch.Tensor,
+              out: torch.Tensor = None,
+              run: torch.Tensor = None) -> torch.Tensor:
     """C = a @ b (mod p), balanced int32 in and out.  CUDA tensors go to
-    the K1 kernel, CPU tensors to the plain version."""
+    the K1 kernel, CPU tensors to the plain version.
+
+    With ``out`` the product is added to it in place (out = out + a @ b
+    mod p; contiguous, sharing no memory with a or b), and out is
+    returned.  ``run`` (with ``out``), a 0-d bool tensor, skips the product
+    where it holds False: the kernel reads it on the card, the plain
+    version on the host, as ``lax.cond`` evaluates on the CPU."""
     if a.is_cuda or b.is_cuda:
         from .cuda_matmul import modmatmul_cuda
 
-        return modmatmul_cuda(f, a, b)
-    return modmatmul_plain(f, a, b)
+        return modmatmul_cuda(f, a, b, out=out, run=run)
+    if out is None:
+        if run is not None:
+            raise ValueError("modmatmul: run needs out")
+        return modmatmul_plain(f, a, b)
+    if run is None or bool(run):
+        out.copy_(modmul.add(f, out, modmatmul_plain(f, a, b)))
+    return out
 
 
 def modmatvec(f, a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

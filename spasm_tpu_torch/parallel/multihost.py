@@ -22,6 +22,16 @@ def _default_backend(device_type: str) -> str:
     return "nccl" if device_type == "cuda" else "gloo"
 
 
+def require_card(device_type: str) -> None:
+    """Raise where ``device_type`` is "cuda" and no card is visible, as
+    ``echelonize(device="cuda")`` does: a mesh never falls back to the
+    CPU on its own."""
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("a CUDA mesh needs a visible card; pass "
+                           "device_type='cpu' (backend 'gloo') for one on "
+                           "the CPU")
+
+
 def initialize(coordinator_address: "str | None" = None,
                num_processes: "int | None" = None,
                process_id: "int | None" = None,
@@ -32,7 +42,8 @@ def initialize(coordinator_address: "str | None" = None,
     ``process_id`` initializes over TCP.  Without them, a launcher's
     environment (``torchrun``: ``WORLD_SIZE`` > 1, ``RANK``,
     ``MASTER_ADDR``, ``MASTER_PORT``) is used.  ``backend`` defaults to
-    NCCL where a card is visible, else gloo.  Returns (world size, rank).
+    NCCL, which needs a visible card (pass "gloo" for ranks on CPUs).
+    Returns (world size, rank).
     """
     if dist.is_initialized():
         return dist.get_world_size(), dist.get_rank()
@@ -41,8 +52,8 @@ def initialize(coordinator_address: "str | None" = None,
             or env_world > 1):
         return 1, 0
     if backend is None:
-        backend = _default_backend(
-            "cuda" if torch.cuda.is_available() else "cpu")
+        require_card("cuda")
+        backend = _default_backend("cuda")
     if coordinator_address:
         dist.init_process_group(
             backend, init_method=f"tcp://{coordinator_address}",
@@ -55,12 +66,13 @@ def initialize(coordinator_address: "str | None" = None,
 def global_mesh(axis: str = "rows", device_type: "str | None" = None):
     """1-D mesh named ``axis`` over every rank of the job.  In a single
     process with no process group, a one-process group (gloo on the CPU,
-    NCCL on a card) is started first.  ``device_type`` defaults to "cuda"
-    where a card is visible, else "cpu"."""
+    NCCL on a card) is started first.  ``device_type`` defaults to "cuda",
+    which raises without a card."""
     from .sharded import make_mesh
 
     if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+        device_type = "cuda"
+    require_card(device_type)
     if not dist.is_initialized():
         dist.init_process_group(_default_backend(device_type),
                                 store=dist.HashStore(), world_size=1,

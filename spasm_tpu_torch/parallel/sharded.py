@@ -40,16 +40,19 @@ BIG = 2**31 - 1
 def make_mesh(n_devices=None, axis="rows", device_type=None):
     """A 1-D mesh named ``axis`` over the ranks of the initialized default
     process group (``parallel.multihost.initialize``); ``n_devices``, when
-    given, must equal their number.  ``device_type`` defaults to "cuda"
-    where a card is visible, else "cpu"."""
+    given, must equal their number.  ``device_type`` defaults to "cuda",
+    which raises without a card."""
     from torch.distributed.device_mesh import init_device_mesh
 
+    from .multihost import require_card
+
+    if device_type is None:
+        device_type = "cuda"
+    require_card(device_type)
     world = dist.get_world_size()
     if n_devices is not None and n_devices != world:
         raise ValueError(f"a mesh of {n_devices} ranks needs a process group "
                          f"of {n_devices} processes; this one has {world}")
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
     return init_device_mesh(device_type, (world,), mesh_dim_names=(axis,))
 
 

@@ -476,3 +476,143 @@ def test_mesh_of_one_rank_on_the_card(card):
     for k in want:
         assert np.array_equal(got[k], want[k]), k
     assert r == rank(SparseGFp.from_dense(X, f.p), device="cpu") == 200
+
+
+# ---- the fused finish: run flags, the captured graph, no host sync
+
+
+@pytest.mark.parametrize("p", [42013, 4294967291])
+@pytest.mark.parametrize("run", [False, True])
+def test_modmatmul_kernel_out_and_run_flag(p, run, card):
+    # out += a @ b mod p in place where the device flag holds; out left as
+    # it is (all three kernels return at once) where it does not
+    f = field(p)
+    a, b = _rand(f, (1000, 512), 6).to(card), _rand(f, (512, 700), 7).to(card)
+    c = _rand(f, (1000, 700), 8).to(card)
+    out = c.clone()
+    before = cuda_matmul.launches
+    got = cuda_matmul.modmatmul_cuda(f, a, b, out=out,
+                                     run=torch.tensor(run, device=card))
+    assert got is out and cuda_matmul.launches == before + 1
+    want = matmul.modmatmul(f, a.cpu(), b.cpu(), out=c.cpu().clone(),
+                            run=torch.tensor(run))
+    assert torch.equal(out.cpu(), want)
+
+
+@pytest.mark.parametrize("case", ["zero", "live"])
+@pytest.mark.parametrize("run", [False, True])
+def test_panel_kernel_run_flag(case, run, card):
+    # the device flag of the empty-panel branch: False returns P, zero G /
+    # prow / pcol, no pivot and is_piv; True eliminates (an all-zero panel
+    # finds nothing either way)
+    f = field(42013)
+    P = _rand(f, (1000, 128), 9, density=0.6)
+    if case == "zero":
+        P.zero_()
+    ispiv = torch.zeros(1000, dtype=torch.bool)
+    ispiv[::7] = True
+    P, ispiv = P.to(card), ispiv.to(card)
+    flag = torch.tensor(run, device=card)
+    got = cuda_panel.panel_eliminate_cuda(f, 128, P, ispiv, 0, run=flag)
+    want = dense._panel_eliminate(f, P, ispiv, 0, 128, flag)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert bool(got[4].any()) == (run and case == "live")
+
+
+def _finish_case(f, seed, n=600, m=500):
+    X = f.rand((n, m), np.random.default_rng(seed)).astype(np.int64)
+    X[np.random.default_rng(seed + 1).random(X.shape) > 0.4] = 0
+    X[:, 128:256] = 0
+    X[400:] = f.normalize(X[:200] * 3)
+    r, c = np.nonzero(X)
+    return r, c, X[r, c].astype(np.int32)
+
+
+def _fused(f, r, c, v, device, bs=128, m=500):
+    n_pad = -(-600 // bs) * bs
+    to = (lambda x: torch.from_numpy(x).to(device))
+    out = dense.fused_blocked_finish(f, (n_pad, dense._bucket(m)), m, bs,
+                                     128, to(r), to(c), to(v))
+    return [x.cpu() for x in out]
+
+
+@pytest.mark.parametrize("p", [42013, 2147483629])
+def test_fused_finish_graph_replays_equal_eager_and_cpu(p, card):
+    # the first call of a shape runs the loop eagerly, the second captures
+    # it and replays, later ones replay the graph on new data of the same
+    # shape; all equal the CPU's fused finish.  The wrappers count the
+    # eager run's launches only: a capture runs nothing, a replay bypasses
+    # them
+    f = field(p)
+    dense.release_finish_graphs()
+    try:
+        for seed, how in zip((11, 12, 13, 14),
+                             ("eager", "captured", "replayed", "replayed")):
+            r, c, v = _finish_case(f, seed)
+            before = cuda_panel.launches, cuda_matmul.launches
+            got = _fused(f, r, c, v, card)
+            assert dense.last_finish["graph"] == how
+            after = cuda_panel.launches, cuda_matmul.launches
+            if how == "eager":
+                assert all(a > b for a, b in zip(after, before))
+            else:
+                assert after == before
+            want = _fused(f, r, c, v, "cpu")
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+        assert dense.last_finish["graph_bytes"] > 0
+    finally:
+        dense.release_finish_graphs()
+
+
+def test_fused_finish_makes_no_host_sync(card):
+    # the captured and the replayed finish (densify, capture or replay)
+    # under the sync debugger: any synchronizing call raises
+    f = field(42013)
+    dense.release_finish_graphs()
+    r, c, v = _finish_case(f, 14)
+    up = [dense.upload(x, x.dtype, card) for x in (r, c, v)]
+    n_pad, na = 640, dense._bucket(500)
+    want = _fused(f, r, c, v, "cpu")
+    try:
+        dense.fused_blocked_finish(f, (n_pad, na), 500, 128, 128, *up)
+        assert dense.last_finish["graph"] == "eager"
+        torch.cuda.synchronize()
+        for how in ("captured", "replayed"):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                up = [dense.upload(x, x.dtype, card) for x in (r, c, v)]
+                out = dense.fused_blocked_finish(f, (n_pad, na), 500, 128,
+                                                 128, *up)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert dense.last_finish["graph"] == how
+            for g, w in zip(out, want):
+                assert torch.equal(g.cpu(), w)
+    finally:
+        dense.release_finish_graphs()
+
+
+def test_echelonize_fused_equals_streaming_on_the_card(card, monkeypatch):
+    # the fused finish (blocks of _bucket(256) = 256 rows) against the
+    # streaming loop (FUSED_BUDGET = 0, blocks of 256 rows) and the CPU
+    monkeypatch.setattr(dense, "HOST_CUTOFF", 1)
+    A = SparseGFp.rand(field(42013), 900, 700, 0.05,
+                       np.random.default_rng(21))
+    kw = dict(dense_block_size=256, device_sparsity_threshold=None)
+    dense.release_finish_graphs()
+    try:
+        fused = [lu_arrays(echelonize(A, device=card, **kw))
+                 for _ in range(3)]
+        assert dense.last_finish["graph"] == "replayed"
+    finally:
+        dense.release_finish_graphs()
+    cpu = lu_arrays(echelonize(A, device="cpu", **kw))
+    monkeypatch.setattr(dense, "FUSED_BUDGET", 0)
+    dense.last_finish.clear()
+    streaming = lu_arrays(echelonize(A, device=card, **kw))
+    assert not dense.last_finish
+    for k in cpu:
+        for other in (*fused, streaming):
+            assert np.array_equal(other[k], cpu[k]), k

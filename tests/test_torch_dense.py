@@ -124,8 +124,10 @@ def test_block_steps_match_blocked_finish_step(rng):
 
 
 def test_block_loop_matches_fused_blocked_finish(rng, monkeypatch):
-    # the port's one block loop against the reference's single-dispatch
-    # finish, with its dead-row chunking crossed (KC = 64 < rank)
+    # the port's streaming block loop (FUSED_BUDGET = 0 keeps the loop off
+    # the fused finish) against the reference's single-dispatch finish,
+    # with its dead-row chunking crossed (KC = 64 < rank)
+    monkeypatch.setattr(dense, "FUSED_BUDGET", 0)
     f = field(42013)
     n, m, bs = 240, 160, 64
     X = f.rand((n, m), rng).astype(np.int64)

@@ -101,18 +101,22 @@ def test_device_mode_finish(rng, monkeypatch):
 
 
 def test_device_mode_finish_chunked_back_elimination(rng, monkeypatch):
-    # the device-mode block loop with the back-elimination of the
-    # accumulated panel split into row chunks (one row a chunk here, as a
-    # 64802^2 finish on the card splits it): the same LU as the reference
+    # the device-mode streaming block loop (which a 64802^2 finish on the
+    # card takes: it is over FUSED_BUDGET; the budget is set to 0 here, and
+    # the reference streams as well) with the back-elimination of the
+    # accumulated panel split into row chunks (one row a chunk here, as
+    # that finish splits it): the same LU as the reference
     monkeypatch.setattr(ref_dense, "HOST_CUTOFF", 1)
     monkeypatch.setattr(port_dense, "HOST_CUTOFF", 1)
+    monkeypatch.setattr(ref_dense, "FUSED_BUDGET", 0)
+    monkeypatch.setattr(port_dense, "FUSED_BUDGET", 0)
     monkeypatch.setattr(port_dense, "SUB_CHUNK", 64)
     calls = []
     real = port_dense.modmatmul
 
-    def counting(f, a, b):
+    def counting(f, a, b, **kw):
         calls.append(a.shape[0])
-        return real(f, a, b)
+        return real(f, a, b, **kw)
 
     monkeypatch.setattr(port_dense, "modmatmul", counting)
     A = SparseGFp.rand(F, 300, 200, 0.06, rng)

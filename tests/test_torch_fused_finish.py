@@ -1,0 +1,331 @@
+"""The port's single-dispatch dense finish (spasm_tpu_torch.ops.dense
+.fused_blocked_finish) and its device-resident rref_inplace against the JAX
+package's on the CPU, exactly (GF(p): tolerance 0): the same seeded numpy
+inputs give the same r_d, per-block ranks, pivot rows and columns, and the
+same U from extract_u_csr.  Also: which block loop echelonize takes (the
+reference's condition, and the streaming loop under checkpoint=), the
+kernels' run flags in their plain versions, and the mesh helpers, which no
+longer fall back to the CPU.
+
+The reference compiles its tier-B/C arithmetic slowly (a fused finish with
+panel groups of 4 takes minutes at p = 2**31 - 19); those primes run here
+with one panel group, and p = 4294967291 in its own file
+(test_torch_fused_finish_tier_c.py) so that the two run side by side."""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import spasm_tpu as st
+from spasm_tpu import SparseGFp
+from spasm_tpu.field import field
+from spasm_tpu.ops import dense as ref_dense
+
+import spasm_tpu_torch as stt
+from spasm_tpu_torch import interop
+from spasm_tpu_torch.ops import dense
+
+ref_ech = importlib.import_module("spasm_tpu.echelonize")
+port_ech = importlib.import_module("spasm_tpu_torch.echelonize")
+
+
+def finish_matrix(p, rng, case, n=160, m=100):
+    """An (n, m) matrix for a finish in blocks of 32 rows with panels of
+    16: "mixed" has a zero column band of two whole panels, zero rows, a
+    rank-deficient block and dependent tail blocks (rows 96.. are multiples
+    of rows 0..63), and more rows than columns, so the column rank is
+    reached before the last block; "zero" is all zero; "full" is dense with
+    rank m reached in the fourth block, the fifth dead."""
+    f = field(p)
+    X = f.rand((n, m), rng).astype(np.int64)
+    if case == "zero":
+        return X * 0
+    if case == "mixed":
+        X[rng.random(X.shape) > 0.5] = 0
+        X[:, 16:48] = 0
+        X[[3, 40, 41]] = 0
+        X[40:48] = f.normalize(X[32:40] * 5)
+        X[96:] = f.normalize(X[:64] * 3)
+    return X
+
+
+def _coo(X):
+    r, c = np.nonzero(X)
+    return r, c, X[r, c]
+
+
+def _ref_fused(f, shape, npiv, bs, panel, r, c, v):
+    # a fresh jit, so the reference traces with this test's panel group
+    fn = jax.jit(ref_dense.fused_blocked_finish.__wrapped__,
+                 static_argnums=(0, 1, 2, 3, 4))
+    out = fn(f, shape, npiv, bs, panel, jnp.asarray(r, jnp.int32),
+             jnp.asarray(c, jnp.int32), jnp.asarray(v, jnp.int32))
+    return [np.asarray(x) for x in out]
+
+
+def _pivots(ranks, prows, pcols, bs):
+    cols, rows = [], []
+    for b in np.flatnonzero(ranks):
+        k = int(ranks[b])
+        cols += pcols[b, :k].tolist()
+        rows += (b * bs + prows[b, :k]).tolist()
+    return cols, rows
+
+
+def check_fused(p, case, group, monkeypatch, bs=32, panel=16, m=100):
+    f = field(p)
+    X = finish_matrix(p, np.random.default_rng(p % 1000 + len(case)), case,
+                      m=m)
+    n = X.shape[0]
+    na = dense._bucket(m)
+    assert na > m          # npiv < na: padding columns hold no pivot
+    r, c, v = _coo(X)
+    monkeypatch.setattr(ref_dense, "_FORCE_GROUP", group)
+    monkeypatch.setattr(dense, "_FORCE_GROUP", group)
+    monkeypatch.setattr(ref_dense, "_FUSED_KC", 64)   # crossed chunks
+    want = _ref_fused(f, (n, na), m, bs, panel, r, c, v)
+    got = dense.fused_blocked_finish(
+        f, (n, na), m, bs, panel, torch.from_numpy(r), torch.from_numpy(c),
+        torch.from_numpy(v.astype(np.int32)))
+    r_d = int(got[2])
+    assert r_d == int(want[2])
+    for g, w, name in zip(got[3:], want[3:], ("ranks", "prows", "pcols")):
+        np.testing.assert_array_equal(g.numpy(), w, name)
+    cols, _ = _pivots(*want[3:], bs)
+    assert len(cols) == r_d
+    if r_d:
+        U = dense.extract_u_csr(got[0], got[1], r_d, na, cols)
+        U_ref = ref_dense.extract_u_csr(jnp.asarray(want[0]),
+                                        jnp.asarray(want[1]), r_d, na, cols)
+        assert (U != U_ref).nnz == 0 and U.nnz == U_ref.nnz
+    return r_d, got[3].numpy()
+
+
+@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("case", ["mixed", "full", "zero"])
+def test_fused_finish_matches_reference(case, group, monkeypatch):
+    r_d, ranks = check_fused(42013, case, group, monkeypatch)
+    if case == "full":
+        # the column rank is reached in block 3: the later blocks are
+        # dead (the reference's while_loop exits there)
+        assert r_d == 100 and ranks.tolist() == [32, 32, 32, 4, 0]
+    if case == "mixed":
+        assert 0 < r_d < 100 and 0 in ranks.tolist()[3:]
+    if case == "zero":
+        assert r_d == 0
+
+
+def test_fused_finish_matches_reference_tier_b(monkeypatch):
+    check_fused(2147483629, "mixed", 1, monkeypatch)
+
+
+def test_fused_finish_chunked_back_elimination(monkeypatch):
+    # the back-elimination of the accumulated panel in one-row chunks
+    # (SUB_CHUNK smaller than a row), as a finish wider than SUB_CHUNK
+    # splits it: the same result
+    monkeypatch.setattr(dense, "SUB_CHUNK", 1)
+    check_fused(42013, "mixed", 1, monkeypatch)
+
+
+# ---- the device-resident rref_inplace
+
+
+def _rref_matrix(p, rng, n=70, m=90):
+    X = field(p).rand((n, m), rng).astype(np.int64)
+    X[rng.random(X.shape) > 0.6] = 0
+    X[5] = X[9]
+    X[:, 11] = 0
+    X[:, 32:48] = 0        # two whole empty panels of 8
+    X[60:] = field(p).normalize(X[:10] * 2)
+    return X
+
+
+def check_rref(p, group, want_transform, rng, monkeypatch):
+    f = field(p)
+    X = _rref_matrix(p, rng)
+    npivcols = 80   # the last columns are not eligible
+    monkeypatch.setattr(ref_dense, "_FORCE_GROUP", group)
+    monkeypatch.setattr(dense, "_FORCE_GROUP", group)
+    fn = jax.jit(ref_dense._rref_jit.__wrapped__,
+                 static_argnums=(0, 2, 3, 4))
+    want = fn(f, jnp.asarray(X, jnp.int32), npivcols, 8, want_transform)
+    got = dense._rref(f, torch.from_numpy(X.astype(np.int32)), npivcols, 8,
+                      want_transform)
+    assert got[1].dim() == 0 and got[1].dtype == torch.int32
+    assert int(got[1]) == int(want[1]) > 0
+    for i, name in ((0, "R"), (2, "prow_of"), (3, "pcol_of"),
+                    (4, "is_piv"), (5, "T")):
+        if want[i] is None:
+            assert got[i] is None
+        else:
+            np.testing.assert_array_equal(got[i].numpy(), np.asarray(want[i]),
+                                          name)
+
+
+@pytest.mark.parametrize("p,group,want_transform", [
+    (42013, 1, False), (42013, 1, True), (42013, 4, False), (42013, 4, True),
+    (2147483629, 1, True)])
+def test_rref_matches_reference(p, group, want_transform, rng, monkeypatch):
+    check_rref(p, group, want_transform, rng, monkeypatch)
+
+
+def test_rref_inplace_dead_on_entry():
+    # alive=False on entry: the reference's while_loop is not entered
+    f = field(42013)
+    X = torch.from_numpy(_rref_matrix(42013, np.random.default_rng(3))
+                         .astype(np.int32))
+    R, rank, prow_of, pcol_of, is_piv = dense.rref_inplace(
+        f, X, 80, 8, alive=torch.tensor(False))
+    assert int(rank) == 0 and torch.equal(R, X)
+    assert (prow_of == -1).all() and (pcol_of == -1).all()
+    assert not is_piv.any()
+
+
+@pytest.mark.parametrize("run", [False, True])
+def test_panel_run_flag(run):
+    # the plain panel elimination with the kernel's run flag: False is the
+    # reference's empty-panel branch (P, zeros, is_piv), True the same as
+    # no flag
+    f = field(42013)
+    rng = np.random.default_rng(4)
+    P = torch.from_numpy(f.rand((40, 16), rng).astype(np.int32))
+    ip = torch.zeros(40, dtype=torch.bool)
+    ip[3] = True
+    got = dense._panel_eliminate(f, P, ip, 0, 16, torch.tensor(run))
+    if run:
+        want = dense._panel_eliminate(f, P, ip, 0, 16)
+    else:
+        z = torch.zeros(16, dtype=torch.int32)
+        want = (P, torch.zeros_like(P), z, z, torch.zeros(16, dtype=bool), ip)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_modmatmul_out_and_run():
+    # the accumulating product with a run flag (K1's plain path): out +=
+    # a @ b mod p where the flag holds, out untouched where it does not
+    from spasm_tpu_torch.ops import matmul
+
+    f = field(42013)
+    rng = np.random.default_rng(5)
+    a, b, c = (torch.from_numpy(f.rand(s, rng).astype(np.int32))
+               for s in ((30, 20), (20, 40), (30, 40)))
+    want = dense.modmul.add(f, c, matmul.modmatmul(f, a, b))
+    out = c.clone()
+    assert matmul.modmatmul(f, a, b, out=out, run=torch.tensor(False)) is out
+    assert torch.equal(out, c)
+    matmul.modmatmul(f, a, b, out=out, run=torch.tensor(True))
+    assert torch.equal(out, want)
+    with pytest.raises(ValueError):
+        matmul.modmatmul(f, a, b, run=torch.tensor(True))
+
+
+# ---- which block loop echelonize takes
+
+
+def _spies(monkeypatch):
+    calls = {"ref": 0, "port": 0}
+    for mod, key in ((ref_ech, "ref"), (port_ech, "port")):
+        real = mod._fused_device_finish
+
+        def spy(*a, _real=real, _key=key, **k):
+            calls[_key] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(mod, "_fused_device_finish", spy)
+    return calls
+
+
+def _both(A, tmp_path=None, port_kw=None, **kw):
+    want = interop.lu_arrays(st.echelonize(A, **kw))
+    got = interop.lu_arrays(stt.echelonize(
+        interop.sparse_from_reference(A), device="cpu", **kw,
+        **(port_kw or {})))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], k)
+    return got
+
+
+@pytest.mark.parametrize("case", ["fused", "checkpoint", "low_rank",
+                                  "over_budget", "L"])
+def test_echelonize_takes_the_references_finish(case, monkeypatch,
+                                                tmp_path):
+    F = field(42013)
+    rng = np.random.default_rng(11)
+    monkeypatch.setattr(ref_dense, "HOST_CUTOFF", 1)
+    monkeypatch.setattr(dense, "HOST_CUTOFF", 1)
+    calls = _spies(monkeypatch)
+    kw = dict(max_round=0, dense_block_size=100)
+    port_kw = None
+    want_calls = {"ref": 1, "port": 1}
+    if case == "low_rank":
+        import scipy.sparse as sp
+
+        X = sp.random(700, 20, density=0.3, random_state=rng,
+                      data_rvs=lambda k: rng.integers(1, 1000, k),
+                      dtype=np.int64)
+        Y = sp.random(20, 60, density=0.3, random_state=rng,
+                      data_rvs=lambda k: rng.integers(1, 1000, k),
+                      dtype=np.int64)
+        A = SparseGFp.from_scipy((X @ Y).tocsr(), F.p)
+        want_calls = {"ref": 0, "port": 0}
+    else:
+        A = SparseGFp.rand(F, 260, 180, 0.06, rng)
+    if case == "checkpoint":
+        # the port streams (its sidecar protects the finish); the
+        # reference's fused finish writes none; the LU is the same
+        port_kw = dict(checkpoint=str(tmp_path / "ck.npz"))
+        want_calls = {"ref": 1, "port": 0}
+    if case == "over_budget":
+        monkeypatch.setattr(ref_dense, "FUSED_BUDGET", 0)
+        monkeypatch.setattr(dense, "FUSED_BUDGET", 0)
+        want_calls = {"ref": 0, "port": 0}
+    if case == "L":
+        kw["L"] = True
+    got = _both(A, port_kw=port_kw, **kw)
+    assert calls == want_calls
+    assert got["r"] > 0
+
+
+def test_fused_finish_returns_none_without_pivots(monkeypatch):
+    # a finish whose rows are all zero in the finish's columns finds no
+    # pivot: both loops return None alike
+    F = field(42013)
+    calls = _spies(monkeypatch)
+    monkeypatch.setattr(ref_dense, "HOST_CUTOFF", 1)
+    monkeypatch.setattr(dense, "HOST_CUTOFF", 1)
+    rows = np.arange(200) % 100
+    cols = np.arange(200) % 50
+    vals = np.ones(200, np.int64)
+    r, c, v = port_ech._fused_device_finish(
+        F, 100, 50, 128, 128, rows, cols, vals, torch.device("cpu"))
+    assert r.shape == (50, 50) and len(c) == 50
+    got = port_ech._fused_device_finish(
+        F, 100, 50, 128, 128, rows, cols, vals * 0, torch.device("cpu"))
+    assert got is None and calls["port"] == 2
+
+
+# ---- the mesh helpers default to the card
+
+
+@pytest.mark.parametrize("helper", ["global_mesh", "make_mesh",
+                                    "initialize"])
+def test_mesh_helpers_need_a_card_by_default(helper):
+    import torch.distributed as dist
+
+    from spasm_tpu_torch.parallel import multihost, sharded
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CUDA default runs")
+    call = {"global_mesh": lambda: multihost.global_mesh(),
+            "make_mesh": lambda: sharded.make_mesh(),
+            "initialize": lambda: multihost.initialize(
+                "localhost:1", num_processes=2, process_id=0)}[helper]
+    with pytest.raises(RuntimeError, match="card"):
+        call()
+    assert not dist.is_initialized()
