@@ -20,11 +20,13 @@ Phases, one line each:
            past a tile, every limb count and k past one fold interval; at
            each main-path shape and 4096^3 the wrapper call, the split
            launches alone and the product launch alone are timed; the
-           kernels line's is the fused finish's group update
+           kernels line's is the fused finish's group update, also timed
+           at p = 2147483629 and 4294967291 (its by_prime)
   k2       the panel elimination kernel against its plain version, both on
            the card, bit for bit in all six outputs (n = 1 .. 8192, c = 37
            .. 4096, five primes; n = 1000, 1024 (the fused finish's
-           panel: the kernels line's) and 4096 timed, with the time
+           panel: the kernels line's, timed at every prime: its
+           by_prime) and 4096 timed, with the time
            of each phase of a step and a latency bound: the pivot steps
            times the shortest cluster barrier of one step)
   k3       the merge kernel against its plain version, both on the card,
@@ -58,6 +60,17 @@ Phases, one line each:
            rank and canonical RREF; K2's run flag against
            _panel_eliminate on an all-zero and a live panel, and K1
            accumulating under its run flag against the plain product
+  tiers    the main path at the JAX package's large primes, p = 2147483629
+           (tier B, 4 limbs) and 4294967291 (tier C, 5 limbs): the run
+           flags as in fused (K1 into out= at (1024, 512, 8192), K2 on
+           (1024, 128) panels); the flagship's pattern at p through the
+           fused finish (eager, capture, two replays, rank 8192) bit-equal
+           to the streaming loop at the fused loop's height;
+           ops/dense.rref of a random 2048^2 matrix (the JAX package's
+           dense_rref case), rank 2048, timed; then, the CPU sides in
+           child processes, card against CPU: the 3000 x 720 echelon
+           case, API_MID (echelonize with L, solve, gesv) and the 2048^2
+           RREF
   sparse   the device sparse Schur path (device_sparse_min_nnz): round-0
            pairs of the d7 and d8 boundaries and the random 30k^2 matrix
            through the one-pass merge on the card against the host kernel
@@ -93,12 +106,15 @@ Phases, one line each:
            wall is printed beside the card's name and power limit.
   resume   checkpoint / resume on the card: a child process echelonizes the
            flagship with a checkpoint and a sidecar saved after every
-           block, is killed with SIGKILL once a sidecar with b0 > 0 is on
-           disk, and the resumed LU must be bit-equal to an uninterrupted
-           run (the sidecar's bytes and save seconds, the resumed and
-           uninterrupted walls, the K1 / K2 launches of the resumed
-           finish); the same for the d8 boundary killed after the round
-           checkpoint of round >= 1
+           block (FUSED_BUDGET = 0 in both processes: the streaming loop
+           of a finish over the budget), is killed with SIGKILL once a
+           sidecar with b0 > 0 is on disk, and the resumed LU must be
+           bit-equal to an uninterrupted run (the sidecar's bytes and save
+           seconds, the resumed and uninterrupted walls, the K1 / K2
+           launches of the resumed finish); the flagship with checkpoint=
+           at the default budget takes the fused finish, writes no
+           sidecar and is bit-equal to the run without; the same for the
+           d8 boundary killed after the round checkpoint of round >= 1
   mesh     scale-out over torch.distributed: echelonize(d7, mesh=) at world
            size 1 (NCCL, this process) and 2 (two processes sharing the
            card over gloo), every rank's LU equal to the single-device LU
@@ -126,6 +142,7 @@ it exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -143,7 +160,7 @@ import numpy as np
 import torch
 
 PHASES = ("build", "k1", "k2", "k3", "rref", "e2e", "echelon", "fused",
-          "sparse", "waves", "api", "resume", "mesh")
+          "tiers", "sparse", "waves", "api", "resume", "mesh")
 DEV = "cuda"
 
 # (n, k, m, p, acc): the K1 shapes that are timed.  With acc the wrapper is
@@ -151,7 +168,8 @@ DEV = "cuda"
 # under a run flag, held against the plain product added to out (and, with
 # the flag False, against out left as it was).  First the kernels line's
 # shape, the fused finish's group update at the flagship (1024-row blocks,
-# the most K1 time of its main path); then its other shapes there: a
+# the most K1 time of its main path), and the same at 4 and 5 limbs (the
+# tiers phase's primes); then its other shapes there: a
 # panel's window correction, the windows of the earlier pivot rows, the
 # group's 512^2 resolve and its resolved rows, the block correction early
 # and late (K = 1024, 7168) and the back-elimination late; then the
@@ -159,6 +177,8 @@ DEV = "cuda"
 # 4096^3
 K1_TIMED = [
     (1024, 512, 8192, 42013, True),
+    (1024, 512, 8192, 2147483629, True),
+    (1024, 512, 8192, 4294967291, True),
     (1024, 128, 128, 42013, True),
     (128, 128, 128, 42013, True),
     (512, 512, 512, 42013, True),
@@ -238,11 +258,21 @@ DIST_RANK = (4096, 3072, 15)
 MESH_WORLDS = (1, 2)
 # the resume phase's dense finish: rows a block (the default)
 RESUME_BLOCK = 1000
-# seconds a child of the resume / mesh phases may take
+# the tiers phase: the JAX package's large primes (bench.py's
+# LARGE_PRIME_B and LARGE_PRIME_C: tier B, 4 limbs; tier C, 5 limbs), and
+# the side of bench.py's dense_rref case (held against the CPU tensor
+# path, which takes about 40 s at 2048^2 on the card's host)
+TIER_PRIMES = (2147483629, 4294967291)
+TIER_RREF = 2048
+# the child processes of the tiers phase's CPU sides, and the torch
+# threads of each
+TIER_CPU_PROCS, TIER_CPU_THREADS = 3, 2
+# seconds a child of the resume / mesh / tiers phases may take
 CHILD_TIMEOUT_S = 600
-# the settings a child process of the resume and mesh phases takes from
-# this one
-CHILD_KNOBS = ("DEV", "FLAGSHIP_N", "D7", "D8", "DIST_RANK", "RESUME_BLOCK")
+# the settings a child process of the resume, mesh and tiers phases takes
+# from this one
+CHILD_KNOBS = ("DEV", "FLAGSHIP_N", "D7", "D8", "DIST_RANK", "RESUME_BLOCK",
+               "API_MID", "TIER_RREF")
 # the H100 SXM's published peaks (NVIDIA's data sheet, at 700 W) for the
 # kernels' bounds: device memory, int8 tensor cores, and the float32 rate
 # outside the tensor cores, which stands for the integer and compare work
@@ -413,6 +443,13 @@ def k1_split_check(f, a, b) -> dict:
                                       max_abs_diff(bp, want_b)))
 
 
+def by_prime(ctx, name: str, p: int, rec: dict) -> None:
+    """Keep a kernel's time at its kernels-line shape by prime (the
+    kernels line's ``by_prime``)."""
+    ctx.setdefault("by_prime", {}).setdefault(name, {})[str(p)] = {
+        k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+
+
 def phase_k1(ctx):
     from spasm_tpu_torch import field
     from spasm_tpu_torch._host.field import num_limbs
@@ -501,6 +538,8 @@ def phase_k1(ctx):
                 4.0 * (n * k + k * m) + ap.numel() + bp.numel(), 0,
                 ALU_OPS_S)
             rec["int8_share"] = rec["bound_ms"] / rec["product_ms"]
+            if (n, k, m) == K1_TIMED[0][:3]:
+                by_prime(ctx, "modmatmul", p, rec)
         if i == 0:
             # yardstick, not the same function: torch._int_mm of one int8
             # limb plane, times nl**2 (the port never calls it)
@@ -635,8 +674,8 @@ def phase_k2(ctx):
         worst = max(worst, err)
         rec = dict(n=n, c=c, p=p, kind=kind, j0=j0, npivcols=npivcols,
                    pivots=int(want[4].sum()), max_abs_err=err)
-        if c == 128 and p == 42013 and kind == "full" and n in (1000, 1024,
-                                                                4096):
+        if c == 128 and kind == "full" and (
+                n == 1024 or p == 42013 and n in (1000, 4096)):
             # timed in turns: kernel, plain, plain, kernel
             t = [time_ms(kernel, 20), time_ms(plain, 2), time_ms(plain, 2),
                  time_ms(kernel, 20)]
@@ -654,6 +693,8 @@ def phase_k2(ctx):
                                        / 1e3)
             rec["step_us"] = st
             if n == 1024:   # the fused finish's panels
+                by_prime(ctx, "panel", p, rec)
+            if n == 1024 and p == 42013:
                 ctx["k2_time"] = (rec["ms"], rec["plain_ms"],
                                   rec["bound_ms"], rec["bound_by"], None)
         emit("k2", **rec)
@@ -950,28 +991,37 @@ def phase_e2e(ctx):
 
 
 def phase_echelon(ctx):
+    echelon_card_vs_cpu(ctx, "echelon", 42013)
+
+
+def echelon_run(p: int, device: str):
+    """The 3000 x 720 case at p through echelonize on ``device``: its LU
+    arrays, phase walls and the finish it took (the log line)."""
     from spasm_tpu_torch import SparseGFp, echelonize, field, last_phase_stats
     from spasm_tpu_torch._host.utils import logging as slog
     from spasm_tpu_torch.interop import lu_arrays
 
-    A = SparseGFp.rand(field(42013), 3000, 720, 0.05,
-                       np.random.default_rng(7))
-    runs = {}
-    for dev in (DEV, "cpu"):
-        lines: list[str] = []
-        slog.set_log(lines.append)
-        try:
-            fact = echelonize(A, device=dev, dense_block_size=1500,
-                              verbose=True)
-        finally:
-            slog.set_log(None)
-        path = [ln for ln in lines if ln.startswith(
-            "[echelonize/dense] processing")]
-        runs[dev] = (lu_arrays(fact), last_phase_stats(), path)
-    (got, st_g, path_g), (want, st_c, path_c) = runs[DEV], runs["cpu"]
+    A = SparseGFp.rand(field(p), 3000, 720, 0.05, np.random.default_rng(7))
+    lines: list[str] = []
+    slog.set_log(lines.append)
+    try:
+        fact = echelonize(A, device=device, dense_block_size=1500,
+                          verbose=True)
+    finally:
+        slog.set_log(None)
+    path = [ln for ln in lines if ln.startswith(
+        "[echelonize/dense] processing")]
+    return lu_arrays(fact), last_phase_stats(), path, A.nnz
+
+
+def echelon_card_vs_cpu(ctx, phase: str, p: int, cpu=None) -> None:
+    """echelon_run at p on the card against the CPU's (``cpu``, or run
+    here): the same finish taken, bit-equal LUs."""
+    got, st_g, path_g, nnz = echelon_run(p, DEV)
+    want, st_c, path_c, _ = cpu or echelon_run(p, "cpu")
     bad = [k for k in want if not np.array_equal(got.get(k), want[k])]
-    emit("echelon", shape=[3000, 720], nnz=A.nnz, rank=int(got["r"]),
-         path_card=path_g, path_cpu=path_c,
+    emit(phase, case="echelon", p=p, shape=[3000, 720], nnz=nnz,
+         rank=int(got["r"]), path_card=path_g, path_cpu=path_c,
          device_s=[st_g["device_s"], st_c["device_s"]], mismatched=bad)
     if bad or set(got) != set(want):
         raise AssertionError(f"echelonize card != cpu in {bad}")
@@ -985,16 +1035,17 @@ def phase_echelon(ctx):
 FUSED_WARM = 2
 
 
-def run_flag_checks() -> dict:
+def run_flag_checks(p: int = 42013) -> dict:
     """(e): K2 with its run flag against _panel_eliminate with the same
     flag, on an all-zero (1024, 128) panel (the fused finish's) and a live
     one, both flags; K1
     accumulating into out under its run flag (the group update's shape)
-    against the plain product added to out.  Max abs differences."""
+    against the plain product added to out; at the prime p.  Max abs
+    differences."""
     from spasm_tpu_torch import field
     from spasm_tpu_torch.ops import cuda_matmul, cuda_panel, dense, matmul
 
-    f = field(42013)
+    f = field(p)
     rng = np.random.default_rng(31)
     live = f.rand((1024, 128), rng).astype(np.int32)
     live[rng.random(live.shape) < 0.4] = 0
@@ -1022,23 +1073,119 @@ def run_flag_checks() -> dict:
     return out
 
 
-def phase_fused(ctx):
-    """The fused dense finish (one CUDA graph a shape) on four cases."""
+# the finish's uploads and fused_blocked_finish run under the sync
+# debugger inside watched_finish(): "warn" for a first call (its syncs
+# counted), "error" for a capture or a replay; the two reads after it are
+# outside
+_WATCH = {"mode": "warn", "calls": 0, "syncs": 0, "sites": []}
+
+
+def _guarded(fn, count=False):
     import warnings
 
-    from spasm_tpu_torch import SparseGFp, echelonize, field, last_phase_stats
+    def run(*a, **k):
+        _WATCH["calls"] += count
+        if DEV != "cuda":
+            return fn(*a, **k)
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode(_WATCH["mode"])
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                # not the notice that the debug mode is a prototype
+                syncs = [x for x in seen if "synchronizing CUDA "
+                         "operation" in str(x.message)]
+                _WATCH["syncs"] += len(syncs)
+                _WATCH["sites"] += [f"{os.path.basename(x.filename)}:"
+                                    f"{x.lineno}" for x in syncs]
+    return run
+
+
+@contextlib.contextmanager
+def watched_finish():
+    """dense.upload and dense.fused_blocked_finish under the sync debugger
+    (the latter counted); the graph cache is freed on the way out."""
+    from spasm_tpu_torch.ops import dense
+
+    real_up, real_fb = dense.upload, dense.fused_blocked_finish
+    dense.upload = _guarded(real_up)
+    dense.fused_blocked_finish = _guarded(real_fb, count=True)
+    try:
+        yield
+    finally:
+        dense.upload, dense.fused_blocked_finish = real_up, real_fb
+        dense.release_finish_graphs()
+
+
+def timed_finish(M, kw, mode, facts=None):
+    """echelonize(M, device=DEV, **kw) inside watched_finish() with the
+    sync debugger in ``mode``: (its LU arrays, a record of its walls, the
+    fused finishes it called, their syncs, the wrappers' launches and
+    ops/dense.last_finish)."""
+    from spasm_tpu_torch import echelonize, last_phase_stats
     from spasm_tpu_torch.interop import lu_arrays
     from spasm_tpu_torch.ops import dense
 
-    flags = run_flag_checks()
-    emit("fused", part="run flags", card=ctx["card"], max_abs_err=flags)
-    if any(flags.values()):
-        raise AssertionError(f"a kernel's run flag != its plain version: "
-                             f"{flags}")
-    for key, k in (("k2_err", "k2"), ("k1_err", "k1")):
-        if key in ctx:
-            ctx[key] = max(ctx[key], flags[k])
+    _WATCH.update(mode=mode, calls=0, syncs=0, sites=[])
+    dense.last_finish.clear()
+    reset_launches()
+    fact, w = wall(lambda: echelonize(M, device=DEV, **kw))
+    st = last_phase_stats()
+    rec = dict(wall_s=w, pivot_s=st["pivot_s"], finish_s=st["finish_s"],
+               device_s=st["device_s"], fused_calls=_WATCH["calls"],
+               syncs=_WATCH["syncs"], sync_sites=_WATCH["sites"],
+               launches=read_launches(), **dense.last_finish)
+    if facts is not None:
+        facts.append(fact)
+    return lu_arrays(fact), rec
 
+
+def check_fused_runs(name: str, recs: dict, replayed=None) -> None:
+    """The runs of one case: one fused finish in each run but the
+    "streaming" ones, none there; on a card the graph cache went eager,
+    captured, replayed.., no capture or replay synced, the first call
+    launched K1 and K2, and the profiled replay (if any) ran both."""
+    fused = [k for k in recs if not k.startswith("streaming")]
+    if [recs[k]["fused_calls"] for k in recs] != [int(k in fused)
+                                                  for k in recs]:
+        raise AssertionError(f"{name}: the finishes taken differ from "
+                             "fused, fused.., streaming")
+    if DEV != "cuda":
+        return
+    graphs = [recs[k].get("graph") for k in fused]
+    if graphs != ["eager", "captured"] + ["replayed"] * (len(fused) - 2):
+        raise AssertionError(f"{name}: graph cache {graphs}")
+    if any(recs[k]["syncs"] for k in fused[1:]):
+        raise AssertionError(f"{name}: a captured or replayed finish synced")
+    if not all(recs["first"]["launches"][k] for k in ("modmatmul", "panel")):
+        raise AssertionError(f"{name}: no K1 / K2 launch")
+    if replayed is not None and not all(replayed[k]
+                                        for k in ("modmatmul", "panel")):
+        raise AssertionError(f"{name}: the replay ran no K1 / K2: "
+                             f"{replayed}")
+
+
+def flag_errors(ctx, phase: str, p: int) -> None:
+    """run_flag_checks at p, printed, raised on, and merged into the
+    kernels' errors."""
+    flags = run_flag_checks(p)
+    emit(phase, part="run flags", p=p, card=ctx["card"], max_abs_err=flags)
+    if any(flags.values()):
+        raise AssertionError(f"a kernel's run flag != its plain version at "
+                             f"p = {p}: {flags}")
+    for key, k in (("k2_err", "k2"), ("k1_err", "k1")):
+        ctx[key] = max(ctx.get(key, 0), flags[k])
+
+
+def phase_fused(ctx):
+    """The fused dense finish (one CUDA graph a shape) on four cases."""
+    from spasm_tpu_torch import SparseGFp, echelonize, field
+    from spasm_tpu_torch.interop import lu_arrays
+    from spasm_tpu_torch.ops import dense
+
+    flag_errors(ctx, "fused", 42013)
     f = field(42013)
     A = SparseGFp.rand(f, FLAGSHIP_N, FLAGSHIP_N, 0.02,
                        np.random.default_rng(5))
@@ -1049,59 +1196,18 @@ def phase_fused(ctx):
                  f, 3000, 720, 0.05, np.random.default_rng(7)),
               dict(dense_block_size=1500), True),
              ("api_mid", api_mid_case(), {}, True)]
-    # the finish's uploads and fused_blocked_finish run under the sync
-    # debugger: "warn" for a first call (its syncs counted), "error" for a
-    # capture or a replay; the two reads after it are outside
-    watch = {"mode": "warn", "calls": 0, "syncs": 0, "sites": []}
-    real_up, real_fb = dense.upload, dense.fused_blocked_finish
-
-    def guarded(fn, count=False):
-        def run(*a, **k):
-            watch["calls"] += count
-            if DEV != "cuda":
-                return fn(*a, **k)
-            with warnings.catch_warnings(record=True) as seen:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode(watch["mode"])
-                try:
-                    return fn(*a, **k)
-                finally:
-                    torch.cuda.set_sync_debug_mode(0)
-                    # not the notice that the debug mode is a prototype
-                    syncs = [x for x in seen if "synchronizing CUDA "
-                             "operation" in str(x.message)]
-                    watch["syncs"] += len(syncs)
-                    watch["sites"] += [f"{os.path.basename(x.filename)}:"
-                                       f"{x.lineno}" for x in syncs]
-        return run
-
-    def timed(M, kw, mode, facts=None):
-        watch.update(mode=mode, calls=0, syncs=0, sites=[])
-        dense.last_finish.clear()
-        reset_launches()
-        fact, w = wall(lambda: echelonize(M, device=DEV, **kw))
-        st = last_phase_stats()
-        rec = dict(wall_s=w, pivot_s=st["pivot_s"], finish_s=st["finish_s"],
-                   device_s=st["device_s"], fused_calls=watch["calls"],
-                   syncs=watch["syncs"], sync_sites=watch["sites"],
-                   launches=read_launches(),
-                   **dense.last_finish)
-        if facts is not None:
-            facts.append(fact)
-        return lu_arrays(fact), rec
-
-    dense.upload = guarded(real_up)
-    dense.fused_blocked_finish = guarded(real_fb, count=True)
-    try:
+    with watched_finish():
         for name, M, kw, vs_cpu in cases:
             dense.release_finish_graphs()
             lus, recs, facts = {}, {}, []
             # the first call of a shape runs eagerly (its host reads
             # counted), the second captures and replays, later ones replay
-            lus["fused first"], recs["first"] = timed(M, kw, "warn", facts)
-            lus["fused second"], recs["second"] = timed(M, kw, "error")
+            lus["fused first"], recs["first"] = timed_finish(M, kw, "warn",
+                                                             facts)
+            lus["fused second"], recs["second"] = timed_finish(M, kw,
+                                                               "error")
             for i in range(FUSED_WARM):
-                lus["fused warm"], recs[f"warm {i + 1}"] = timed(
+                lus["fused warm"], recs[f"warm {i + 1}"] = timed_finish(
                     M, kw, "error")
             replayed = None
             if name == "flagship":
@@ -1117,10 +1223,11 @@ def phase_fused(ctx):
             same = dict(kw, dense_block_size=dense._bucket(
                 kw.get("dense_block_size", 1000)))
             try:
-                lus["streaming, fused blocks"], recs["streaming 0"] = timed(
-                    M, same, "warn")
+                (lus["streaming, fused blocks"],
+                 recs["streaming 0"]) = timed_finish(M, same, "warn")
                 for i in range(2):
-                    lus["streaming"], recs[f"streaming {i + 1}"] = timed(
+                    (lus["streaming"],
+                     recs[f"streaming {i + 1}"]) = timed_finish(
                         M, kw, "warn", facts)
                 if name == "flagship" and ctx.get("profile_dir"):
                     profile_rank(M, ctx["profile_dir"], "streaming, warm")
@@ -1161,30 +1268,7 @@ def phase_fused(ctx):
                      "canonical RREF"))
             if any(bad.values()):
                 raise AssertionError(f"{name}: LUs differ: {bad}")
-            if [recs[k]["fused_calls"] for k in recs] != [1] * (
-                    2 + FUSED_WARM) + [0, 0, 0]:
-                raise AssertionError(f"{name}: the finishes taken differ "
-                                     "from fused, fused.., streaming")
-            if DEV == "cuda":
-                graphs = [recs[k].get("graph") for k in recs
-                          if not k.startswith("streaming")]
-                if graphs != ["eager", "captured"] + [
-                        "replayed"] * FUSED_WARM:
-                    raise AssertionError(f"{name}: graph cache {graphs}")
-                if any(recs[k]["syncs"] for k in recs
-                       if k == "second" or k.startswith("warm")):
-                    raise AssertionError(f"{name}: a captured or replayed "
-                                         "finish synced")
-                if not all(recs["first"]["launches"][k]
-                           for k in ("modmatmul", "panel")):
-                    raise AssertionError(f"{name}: no K1 / K2 launch")
-                if replayed is not None and not all(
-                        replayed[k] for k in ("modmatmul", "panel")):
-                    raise AssertionError(f"{name}: the replay ran no K1 / "
-                                         f"K2: {replayed}")
-    finally:
-        dense.upload, dense.fused_blocked_finish = real_up, real_fb
-        dense.release_finish_graphs()
+            check_fused_runs(name, recs, replayed)
 
 
 def csr_equal(a, b) -> bool:
@@ -1931,18 +2015,22 @@ def api_d8(ctx):
                              f"verify {good}, B @ K.T == 0 {zero}")
 
 
-def api_mid_case():
+def api_mid_case(p: int = 42013):
     from spasm_tpu_torch import SparseGFp, field
 
     n, d, seed, keep = API_MID
-    return planted_rank(SparseGFp.rand(field(42013), n, n, d,
+    return planted_rank(SparseGFp.rand(field(p), n, n, d,
                                        np.random.default_rng(seed)),
                         keep, np.random.default_rng(seed + 1))
 
 
-def api_outputs(A, device):
+def api_outputs(A, device, full: bool = True):
     """Every output array of the public calls on ``device``, by name, and
-    their walls."""
+    their walls: echelonize(L=True), solve and gesv, and with ``full``
+    also kernel, rref, a rank certificate and the complete echelonize
+    (kernel, rref and the complete echelonize run the host's rref_of_U,
+    whose products are chunked to 4 columns at p = 2147483629 and to 1 at
+    4294967291: minutes at API_MID)."""
     from spasm_tpu_torch import (SparseGFp, certificate_rank_create,
                                  echelonize, gesv, kernel, rref, solve)
     from spasm_tpu_torch.interop import lu_arrays
@@ -1955,13 +2043,16 @@ def api_outputs(A, device):
         for k in ("indptr", "indices", "data"):
             out[f"{prefix}_{k}"] = np.asarray(getattr(M, k))
 
-    K, walls["kernel"] = wall(lambda: kernel(A, device=device))
-    put("kernel", K)
+    if full:
+        K, walls["kernel"] = wall(lambda: kernel(A, device=device))
+        put("kernel", K)
     fact, walls["echelonize_L"] = wall(
         lambda: echelonize(A, L=True, device=device))
-    (R, q), walls["rref"] = wall(lambda: rref(fact))
-    put("rref", R)
-    out["rref_qinv"] = q
+    out.update({f"L_{k}": v for k, v in lu_arrays(fact).items()})
+    if full:
+        (R, q), walls["rref"] = wall(lambda: rref(fact))
+        put("rref", R)
+        out["rref_qinv"] = q
     b = A.xapy(f.rand(A.n, rng))
     x, walls["solve_first"] = wall(lambda: solve(fact, b))
     out["solve_x"] = x
@@ -1970,6 +2061,8 @@ def api_outputs(A, device):
     (X, ok), walls["gesv"] = wall(lambda: gesv(fact, B))
     put("gesv_X", X)
     out["gesv_ok"] = ok
+    if not full:
+        return out, walls, fact
     cert, walls["certificate_create"] = wall(
         lambda: certificate_rank_create(A, device=device))
     for k in ("r", "prime", "i", "j", "x", "y"):
@@ -1977,31 +2070,38 @@ def api_outputs(A, device):
     comp, walls["echelonize_complete"] = wall(
         lambda: echelonize(A, complete=True, L=True, device=device))
     out.update({f"complete_{k}": v for k, v in lu_arrays(comp).items()})
-    out.update({f"L_{k}": v for k, v in lu_arrays(fact).items()})
     return out, walls, fact
 
 
-def api_card_vs_cpu(ctx):
-    A = api_mid_case()
+def api_card_vs_cpu(ctx, phase: str = "api", p: int = 42013,
+                    full: bool = True, cpu=None):
+    """API_MID at p through api_outputs on the card and on the CPU (``cpu``:
+    its arrays and walls, or run here): every array bit-equal, the corner
+    block on the tensor path."""
+    from spasm_tpu_torch.ops import dense
+
+    A = api_mid_case(p)
     reset_launches()
-    got, walls_g, fact = api_outputs(A, DEV)
+    got, walls_g, fact = api_outputs(A, DEV, full)
     launches = read_launches()
-    want, walls_c, _ = api_outputs(A, "cpu")
+    want, walls_c = cpu or api_outputs(A, "cpu", full)[:2]
     bad = sorted(k for k in set(got) | set(want)
                  if k not in got or k not in want
                  or not np.array_equal(got[k], want[k]))
     ds = fact.dense_piv_start
     corner = 0 if ds is None else fact.r - ds
-    emit("api", case=f"rand {API_MID[0]}^2 d={API_MID[1]} seed "
-         f"{API_MID[2]}, rows {API_MID[3]}.. planted", card=ctx["card"],
+    emit(phase, case=f"rand {API_MID[0]}^2 d={API_MID[1]} seed "
+         f"{API_MID[2]}, rows {API_MID[3]}.. planted", p=p, full=full,
+         card=ctx["card"],
          nnz=A.nnz, rank=fact.r, corner_block=[corner, corner],
          arrays=len(want), mismatched=bad, walls_card_s=walls_g,
          walls_cpu_s=walls_c, launches=launches)
     if bad:
         raise AssertionError(f"api card != cpu in {bad}")
-    if corner < 1024:
-        raise AssertionError(f"corner block {corner} under 1024 rows: the "
-                             "inverse did not take the tensor path")
+    if corner * corner < dense.host_cutoff_for(A.field):
+        raise AssertionError(f"corner block {corner}^2 under the host "
+                             "cutoff: the inverse did not take the tensor "
+                             "path")
     if DEV == "cuda" and not (launches["modmatmul"] and launches["panel"]):
         raise AssertionError(f"no K1 or K2 launch: {launches}")
     return A
@@ -2062,6 +2162,151 @@ def phase_api(ctx):
     api_cli(ctx, A)
 
 
+# ---------------- tiers: the main path at the large primes ----------------
+
+
+def tier_flagship(ctx, p: int) -> None:
+    """(a): the flagship's pattern at p through echelonize on the card:
+    the first call (eager), the second (capture), warm replays, each of
+    rank N, and the streaming loop at the fused loop's block height, all
+    bit-equal to the first."""
+    from spasm_tpu_torch import SparseGFp, field
+    from spasm_tpu_torch._host.field import num_limbs
+    from spasm_tpu_torch.ops import dense
+
+    N = FLAGSHIP_N
+    A = SparseGFp.rand(field(p), N, N, 0.02, np.random.default_rng(5))
+    lus, recs = {}, {}
+    with watched_finish():
+        dense.release_finish_graphs()
+        lus["first"], recs["first"] = timed_finish(A, {}, "warn")
+        lus["second"], recs["second"] = timed_finish(A, {}, "error")
+        for i in range(FUSED_WARM):
+            lus[f"warm {i + 1}"], recs[f"warm {i + 1}"] = timed_finish(
+                A, {}, "error")
+        old = dense.FUSED_BUDGET
+        dense.FUSED_BUDGET = 0
+        try:
+            lus["streaming"], recs["streaming"] = timed_finish(
+                A, dict(dense_block_size=dense._bucket(1000)), "warn")
+        finally:
+            dense.FUSED_BUDGET = old
+    bad = {k: lu_mismatch(v, lus["first"]) for k, v in lus.items()}
+    ranks = {k: int(v["r"]) for k, v in lus.items()}
+    nl = num_limbs(p)
+    note_path(ctx, f"tiers: flagship rank at p = {p} ({nl} limbs), first "
+              "(eager)", recs["first"]["launches"])
+    keep = ("wall_s", "pivot_s", "finish_s", "device_s", "graph",
+            "capture_s", "graph_bytes", "input_bytes", "syncs", "launches")
+    emit("tiers", part="flagship", p=p, limbs=nl, card=ctx["card"],
+         nnz=A.nnz, ranks=ranks,
+         runs={k: {x: r[x] for x in keep if x in r} for k, r in recs.items()},
+         mismatched=bad)
+    if any(bad.values()) or set(ranks.values()) != {N}:
+        raise AssertionError(f"flagship at p = {p}: ranks {ranks}, LUs "
+                             f"differ: {bad}")
+    check_fused_runs(f"flagship at p = {p}", recs)
+
+
+def tier_rref_matrix(p: int) -> np.ndarray:
+    from spasm_tpu_torch import field
+
+    return field(p).rand((TIER_RREF, TIER_RREF),
+                         np.random.default_rng(2)).astype(np.int64)
+
+
+def tier_rref_cpu(p: int):
+    """The CPU tensor path's RREF of tier_rref_matrix(p), and its wall."""
+    from spasm_tpu_torch import field
+    from spasm_tpu_torch.ops import dense
+
+    return wall(lambda: dense.rref(field(p), tier_rref_matrix(p),
+                                   device="cpu", host_cutoff=0))
+
+
+def tier_rref(ctx, p: int) -> dict:
+    """(d): ops/dense.rref of a random TIER_RREF^2 matrix at p on the card
+    (the JAX package's dense_rref case), timed twice, rank TIER_RREF."""
+    from spasm_tpu_torch import field
+    from spasm_tpu_torch.ops import dense
+
+    f = field(p)
+    X = tier_rref_matrix(p)
+    n = TIER_RREF
+    reset_launches()
+    got, first_s = wall(lambda: dense.rref(f, X, device=DEV))
+    launches = read_launches()
+    _, warm_s = wall(lambda: dense.rref(f, X, device=DEV))
+    rec = dict(part="dense rref", p=p, card=ctx["card"], shape=[n, n],
+               rank=got["rank"], card_first_s=first_s, card_warm_s=warm_s,
+               launches=launches)
+    if got["rank"] != n:
+        raise AssertionError(f"dense rref at p = {p}: rank {got['rank']}")
+    if DEV == "cuda" and not (launches["modmatmul"] and launches["panel"]):
+        raise AssertionError(f"dense rref at p = {p}: no K1 / K2 launch")
+    return dict(rec=rec, got=got)
+
+
+def tier_rref_vs_cpu(rr: dict, cpu) -> None:
+    """tier_rref's card RREF against tier_rref_cpu's, bit for bit."""
+    (want, cpu_s), got = cpu, rr["got"]
+    keys = ("R", "rank", "piv_rows", "piv_cols", "qinv")
+    bad = [k for k in keys if not np.array_equal(np.asarray(got[k]),
+                                                 np.asarray(want[k]))]
+    emit("tiers", **rr["rec"], cpu_s=cpu_s, mismatched=bad)
+    if bad:
+        raise AssertionError(f"dense rref at p = {rr['rec']['p']}: card != "
+                             f"cpu in {bad}")
+
+
+def tier_cpu_job(kind: str, p: int, kn: dict):
+    """A child process of the tiers phase: the CPU side of one card
+    against CPU comparison at p ("echelon", "api" or "rref")."""
+    from spasm_tpu_torch._host.utils.hostmem import tune_host_malloc
+    from spasm_tpu_torch.ops import dense
+
+    cutoffs = kn.pop("cutoffs")
+    globals().update(kn)
+    dense.HOST_CUTOFF, dense.HOST_CUTOFF_BIGP = cutoffs
+    tune_host_malloc()
+    torch.set_num_threads(TIER_CPU_THREADS)
+    if kind == "echelon":
+        return echelon_run(p, "cpu")
+    if kind == "api":
+        return api_outputs(api_mid_case(p), "cpu", full=False)[:2]
+    return tier_rref_cpu(p)
+
+
+def phase_tiers(ctx):
+    """The main path at the JAX package's large primes: tier B (4 limbs)
+    and tier C (5 limbs).  The timed card work runs first, alone; then the
+    CPU sides of the card against CPU comparisons run in child processes
+    while the card runs its sides."""
+    import multiprocessing as mp
+
+    import spasm_tpu_torch
+    from spasm_tpu_torch.ops import dense
+
+    rrefs = {}
+    for p in TIER_PRIMES:
+        flag_errors(ctx, "tiers", p)
+        tier_flagship(ctx, p)
+        rrefs[p] = tier_rref(ctx, p)
+        spasm_tpu_torch.release_native_scratch()
+    kn = dict(knobs(), cutoffs=(dense.HOST_CUTOFF, dense.HOST_CUTOFF_BIGP))
+    with mp.get_context("spawn").Pool(TIER_CPU_PROCS) as pool:
+        # the longest first
+        jobs = {(kind, p): pool.apply_async(tier_cpu_job, (kind, p, kn))
+                for kind in ("api", "rref", "echelon")
+                for p in TIER_PRIMES[::-1]}
+        for p in TIER_PRIMES:
+            echelon_card_vs_cpu(ctx, "tiers", p, cpu=jobs["echelon", p].get(
+                CHILD_TIMEOUT_S))
+            api_card_vs_cpu(ctx, "tiers", p, full=False,
+                            cpu=jobs["api", p].get(CHILD_TIMEOUT_S))
+            tier_rref_vs_cpu(rrefs[p], jobs["rref", p].get(CHILD_TIMEOUT_S))
+
+
 # ---------------- resume: checkpoint / resume on the card ----------------
 
 
@@ -2092,16 +2337,19 @@ def knobs() -> dict:
 
 def checkpoint_child(case: str, path: str, log_path: str, kn: dict) -> None:
     """A child process: echelonize(case, checkpoint=path) with a sidecar
-    saved after every block, each log line flushed to log_path."""
+    saved after every block (the streaming loop: FUSED_BUDGET = 0, as
+    over the budget), each log line flushed to log_path."""
     import importlib
 
     from spasm_tpu_torch import echelonize, set_log
     from spasm_tpu_torch._host.utils.hostmem import tune_host_malloc
+    from spasm_tpu_torch.ops import dense
 
     globals().update(kn)
     tune_host_malloc()
     importlib.import_module(
         "spasm_tpu_torch.echelonize").DENSE_CKPT_INTERVAL_S = 0.0
+    dense.FUSED_BUDGET = 0
     A = make_case(case)
     with open(log_path, "a", buffering=1) as fh:
         set_log(lambda msg: fh.write(f"{time.time():.3f} {msg}\n"))
@@ -2211,6 +2459,8 @@ def resume_case(ctx, case: str, ready, expected_rank: int) -> None:
 
 
 def phase_resume(ctx):
+    from spasm_tpu_torch.ops import dense
+
     def sidecar_saved(lines):
         return any(k == "block offset" and b0 > 0
                    for k, b0, _, _ in saves_of(lines))
@@ -2218,11 +2468,60 @@ def phase_resume(ctx):
     def round_saved(lines):
         return any(k == "round" and r >= 1 for k, r, _, _ in saves_of(lines))
 
-    launches = resume_case(ctx, "flagship", sidecar_saved, FLAGSHIP_N)
-    if DEV == "cuda" and not (launches["modmatmul"] and launches["panel"]):
-        raise AssertionError(f"the resumed finish launched no K1 or K2: "
-                             f"{launches}")
-    resume_case(ctx, "d8", round_saved, D8[2])
+    # the killed runs stream as a finish over FUSED_BUDGET does (here and
+    # in the children): within it a checkpointed run takes the fused
+    # finish, which saves no sidecar
+    old = dense.FUSED_BUDGET
+    dense.FUSED_BUDGET = 0
+    try:
+        launches = resume_case(ctx, "flagship", sidecar_saved, FLAGSHIP_N)
+        if DEV == "cuda" and not (launches["modmatmul"]
+                                  and launches["panel"]):
+            raise AssertionError(f"the resumed finish launched no K1 or "
+                                 f"K2: {launches}")
+        resume_case(ctx, "d8", round_saved, D8[2])
+    finally:
+        dense.FUSED_BUDGET = old
+    checkpointed_fused(ctx)
+
+
+def checkpointed_fused(ctx) -> None:
+    """The flagship with checkpoint= at the default budget: it takes the
+    fused finish (one call of dense.fused_blocked_finish), writes the
+    round checkpoint and no sidecar, and its LU is bit-equal to the run
+    without checkpoint=."""
+    from spasm_tpu_torch import set_log
+    from spasm_tpu_torch.ops import dense
+
+    A = ctx["cases"]["flagship"]
+    d = work_dir("resume_fused")
+    path = os.path.join(d, "flagship.npz")
+    lines: list[str] = []
+    with watched_finish():
+        want, plain = timed_finish(A, {}, "warn")
+        set_log(lines.append)
+        try:
+            got, ckpt = timed_finish(A, dict(checkpoint=path, verbose=True),
+                                     "warn")
+        finally:
+            set_log(None)
+    bad = lu_mismatch(got, want)
+    files = sorted(os.listdir(d))
+    emit("resume", case="flagship, checkpoint= at the default budget",
+         card=ctx["card"], fused_budget=dense.FUSED_BUDGET,
+         rank=int(got["r"]), fused_calls=ckpt["fused_calls"],
+         graph=ckpt.get("graph"), saves=saves_of(lines), files=files,
+         wall_s=ckpt["wall_s"], finish_s=ckpt["finish_s"],
+         wall_without_s=plain["wall_s"], finish_without_s=plain["finish_s"],
+         mismatched=bad)
+    if bad or int(got["r"]) != FLAGSHIP_N:
+        raise AssertionError(f"checkpointed flagship != unchecked in {bad}")
+    if (ckpt["fused_calls"] != 1 or files != ["flagship.npz"]
+            or any(k != "round" for k, _, _, _ in saves_of(lines))):
+        raise AssertionError(f"the checkpointed flagship did not take the "
+                             f"fused finish alone: {ckpt['fused_calls']} "
+                             f"fused calls, files {files}")
+    shutil.rmtree(d, ignore_errors=True)
 
 
 # ---------------- mesh: scale-out over torch.distributed ----------------
@@ -2484,12 +2783,15 @@ def main(argv=None) -> int:
     t_all = time.perf_counter()
     if "build" not in phases:
         phases.insert(0, "build")
+    phase_s = {}
     for ph in PHASES:
         if ph in phases:
+            t_ph = time.perf_counter()
             globals()[f"phase_{ph}"](ctx)
             # no cached graph of the fused finish keeps its card memory
             # into the next phase (whose ranks may share the card)
             spasm_tpu_torch.release_native_scratch()
+            phase_s[ph] = round(time.perf_counter() - t_ph, 1)
     kernels = []
     launches = ctx.get("launches", {})
     for name, src, rep, tkey, ekey in (
@@ -2520,8 +2822,12 @@ def main(argv=None) -> int:
         # the launches on each path this run drove, counts set to 0 right
         # before each and read right after
         kernels[-1]["launches_by_path"] = ctx.get("paths", {}).get(name, {})
+        if name in ctx.get("by_prime", {}):
+            # K1 and K2 at the kernels line's shape at every prime timed
+            kernels[-1]["by_prime"] = ctx["by_prime"][name]
     print(f"[done] phases={','.join(p for p in PHASES if p in phases)} "
-          f"wall_s={time.perf_counter() - t_all:.1f}", flush=True)
+          f"wall_s={time.perf_counter() - t_all:.1f} "
+          f"phase_s={json.dumps(phase_s)}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ctx["card"], flush=True)
     if set(phases) != set(PHASES):

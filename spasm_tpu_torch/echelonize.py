@@ -12,8 +12,9 @@ queue of small launches behind it, and the card then idles while the host
 issues the next ones (on an H100 the 8192^2 flagship's card was busy
 14-16% of a streaming finish that read back a value per panel; PERF.md).
 The streaming loop, which reads each block's rank, serves what needs it,
-as in the reference: low-rank mode, resume, inputs over ``FUSED_BUDGET``,
-and here also a run with ``checkpoint=``, whose dense sidecar it saves.
+as in the reference: low-rank mode, resume from a dense sidecar, and
+inputs over ``FUSED_BUDGET``.  A run with ``checkpoint=`` takes the fused
+finish where the reference does, and like it saves no dense sidecar there.
 
 The device is chosen by the caller: ``device="cuda"`` (the default) or
 ``device="cpu"`` by name.  Without a card, ``device="cuda"`` raises.
@@ -27,8 +28,8 @@ unavailable the sort-based waves (``ops/sparse_device.py``).
 ``opts.complete`` replaces the factorization by the canonical RREF of its
 row space, as in the reference (``solve.rref_of_U``).
 
-``checkpoint=`` saves the round state after every round, and the dense
-finish's block state into ``<checkpoint>.dense`` at most every
+``checkpoint=`` saves the round state after every round, and the
+streaming loops' block state into ``<checkpoint>.dense`` at most every
 ``DENSE_CKPT_INTERVAL_S`` seconds; ``resume=`` continues from such files
 (``checkpoint.py``, the reference's format: a checkpoint moves between
 the two packages).  A dense sidecar that does not load is logged and
@@ -930,8 +931,8 @@ def _blocked_device_loop(f, n_s, na, bs, rows_all, cols_all, vals_all,
     """The dense finish's block loop on ``device``.
 
     Where the reference takes its single-dispatch finish (not low-rank
-    mode, no resume, n_pad * na_b within FUSED_BUDGET), and no checkpoint
-    is asked for, this is ``_fused_device_finish``: blocks of
+    mode, no resume, n_pad * na_b within FUSED_BUDGET), with or without a
+    checkpoint, this is ``_fused_device_finish``: blocks of
     ``_bucket(bs)`` rows, no host read inside the loop.  Otherwise it is the
     streaming loop: one ``dense_ops.blocked_finish_step`` per row block of
     ``bs`` rows against the accumulated mutual RREF ``Ud``, which is
@@ -939,14 +940,14 @@ def _blocked_device_loop(f, n_s, na, bs, rows_all, cols_all, vals_all,
     Each block's rank is read back, so the loop stops once every column
     holds a pivot, and in low-rank mode a dry block triggers the randomized
     tail check.  A sidecar save pulls ``Ud[:r_d]`` to the host; a resume
-    puts it back (the fused finish writes no sidecar, so a checkpointed
-    run streams)."""
+    puts it back.  The fused finish writes no sidecar, as the reference's:
+    a resume from a checkpoint it left finds none and runs it again."""
     bs_b = dense_ops._bucket(bs)
     na_b = dense_ops._bucket(na)
     low_rank_possible = (opts.enable_tall_and_skinny and not opts.L
                          and n_s > opts.tall_and_skinny_ratio * na)
     n_pad = -(-n_s // bs_b) * bs_b
-    if (not low_rank_possible and resume_state is None and ckpt_path is None
+    if (not low_rank_possible and resume_state is None
             and n_pad * na_b <= dense_ops.FUSED_BUDGET):
         return _fused_device_finish(f, n_s, na, na_b, bs_b, rows_all,
                                     cols_all, vals_all, device)

@@ -615,7 +615,7 @@ def fused_blocked_finish(f, shape, npiv: int, bs: int, panel: int, rows,
     eliminated against the accumulated mutual-RREF panel, Jordan-RREF'd,
     back-eliminated into the panel and appended.  Same math as
     ``blocked_finish_step`` (the streaming loop, kept for low-rank mode,
-    resume, checkpoints and inputs over FUSED_BUDGET).
+    resume from a dense sidecar and inputs over FUSED_BUDGET).
 
     shape = (n_pad, na) with n_pad a multiple of bs; npiv <= na is the true
     column count: only those columns hold pivots, and once they all do the

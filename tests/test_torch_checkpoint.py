@@ -133,8 +133,11 @@ def test_dense_finish_checkpoint_resume(rng, tmp_path, monkeypatch):
 
 
 def _device_loop(monkeypatch):
-    """Take the device block loop on CPU tensors at small sizes, saving
+    """Take the streaming device block loop on CPU tensors at small sizes
+    (the reference's lever: FUSED_BUDGET = 0 stands for a finish over the
+    budget; within it a checkpointed run takes the fused finish), saving
     the sidecar after every block."""
+    monkeypatch.setattr(port_dense, "FUSED_BUDGET", 0)
     monkeypatch.setattr(port_dense, "HOST_CUTOFF", 1)
     monkeypatch.setattr(port_dense, "HOST_CUTOFF_BIGP", 1)
     monkeypatch.setattr(port_ech, "DENSE_CKPT_INTERVAL_S", 0.0)
@@ -155,6 +158,35 @@ def test_dense_finish_checkpoint_resume_device_loop(rng, tmp_path,
     monkeypatch.setattr(port_dense, "blocked_finish_step", real)
     assert_same_lu(port(A, resume=path, **opts), want)
     assert not os.path.exists(path + ".dense")
+
+
+def test_checkpointed_fused_finish_writes_no_sidecar(rng, tmp_path,
+                                                     monkeypatch):
+    """Within FUSED_BUDGET a checkpointed run takes the fused finish, as
+    the reference does: it writes the round checkpoint and no dense
+    sidecar, and resume= from that checkpoint runs the fused finish again
+    and gives the reference's LU (the fused loop's blocks are 256 rows,
+    the streaming loop's would be 150)."""
+    monkeypatch.setattr(port_dense, "HOST_CUTOFF", 1)
+    monkeypatch.setattr(ref_dense, "HOST_CUTOFF", 1)
+    monkeypatch.setattr(port_ech, "DENSE_CKPT_INTERVAL_S", 0.0)
+    fused = []
+    real = port_ech._fused_device_finish
+    monkeypatch.setattr(port_ech, "_fused_device_finish",
+                        lambda *a, **k: fused.append(1) or real(*a, **k))
+    saves = []
+    real_save = port_ckpt.save_dense_state
+    monkeypatch.setattr(port_ckpt, "save_dense_state",
+                        lambda *a, **k: saves.append(1) or real_save(*a, **k))
+    A = SparseGFp.rand(F, 400, 300, 0.05, rng)
+    opts = dict(max_round=0, dense_block_size=150)
+    want = st.echelonize(A, **opts)
+    path = str(tmp_path / "fused.npz")
+    assert_same_lu(port(A, checkpoint=path, **opts), want)
+    assert os.listdir(tmp_path) == ["fused.npz"]
+    assert port_ckpt.load_state(path)["round_idx"] == 0
+    assert_same_lu(port(A, resume=path, **opts), want)
+    assert fused == [1, 1] and saves == []
 
 
 def test_dense_finish_stale_sidecar_ignored(rng, tmp_path):

@@ -413,13 +413,15 @@ def test_spmv_card_matches_cpu(p, card):
 
 
 def test_dense_finish_resumes_on_the_card(card, tmp_path, monkeypatch):
-    # the device block loop saves its sidecar after every block, is
-    # stopped at its fourth block, and the resumed LU is the uninterrupted
-    # one (and the CPU's)
+    # the streaming device loop (FUSED_BUDGET = 0: a finish over the
+    # budget) saves its sidecar after every block, is stopped at its
+    # fourth block, and the resumed LU is the uninterrupted one (and the
+    # CPU's)
     import importlib
     import os
 
     ech = importlib.import_module("spasm_tpu_torch.echelonize")
+    monkeypatch.setattr(dense, "FUSED_BUDGET", 0)
     monkeypatch.setattr(dense, "HOST_CUTOFF", 1)
     monkeypatch.setattr(ech, "DENSE_CKPT_INTERVAL_S", 0.0)
     A = SparseGFp.rand(field(42013), 900, 1200, 0.2,
@@ -446,6 +448,28 @@ def test_dense_finish_resumes_on_the_card(card, tmp_path, monkeypatch):
     for k in want:
         assert np.array_equal(got[k], want[k]), k
         assert np.array_equal(cpu[k], want[k]), k
+
+
+def test_checkpointed_finish_is_fused_on_the_card(card, tmp_path):
+    # within FUSED_BUDGET a checkpointed run takes the fused finish, as
+    # the reference does: the round checkpoint and no sidecar, and the
+    # LU of the run without checkpoint=
+    import os
+
+    A = SparseGFp.rand(field(42013), 900, 1200, 0.2,
+                       np.random.default_rng(18))
+    dense.release_finish_graphs()
+    try:
+        want = lu_arrays(echelonize(A, device=card))
+        dense.last_finish.clear()
+        path = str(tmp_path / "card.npz")
+        got = lu_arrays(echelonize(A, device=card, checkpoint=path))
+        assert dense.last_finish["graph"] == "captured"
+    finally:
+        dense.release_finish_graphs()
+    assert os.listdir(tmp_path) == ["card.npz"]
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
 
 
 def test_mesh_of_one_rank_on_the_card(card):
@@ -481,7 +505,7 @@ def test_mesh_of_one_rank_on_the_card(card):
 # ---- the fused finish: run flags, the captured graph, no host sync
 
 
-@pytest.mark.parametrize("p", [42013, 4294967291])
+@pytest.mark.parametrize("p", [42013, 2147483629, 4294967291])
 @pytest.mark.parametrize("run", [False, True])
 def test_modmatmul_kernel_out_and_run_flag(p, run, card):
     # out += a @ b mod p in place where the device flag holds; out left as
@@ -537,7 +561,7 @@ def _fused(f, r, c, v, device, bs=128, m=500):
     return [x.cpu() for x in out]
 
 
-@pytest.mark.parametrize("p", [42013, 2147483629])
+@pytest.mark.parametrize("p", [42013, 2147483629, 4294967291])
 def test_fused_finish_graph_replays_equal_eager_and_cpu(p, card):
     # the first call of a shape runs the loop eagerly, the second captures
     # it and replays, later ones replay the graph on new data of the same

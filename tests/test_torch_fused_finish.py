@@ -3,9 +3,9 @@
 package's on the CPU, exactly (GF(p): tolerance 0): the same seeded numpy
 inputs give the same r_d, per-block ranks, pivot rows and columns, and the
 same U from extract_u_csr.  Also: which block loop echelonize takes (the
-reference's condition, and the streaming loop under checkpoint=), the
-kernels' run flags in their plain versions, and the mesh helpers, which no
-longer fall back to the CPU.
+reference's condition, with or without checkpoint=), the kernels' run
+flags in their plain versions, and the mesh helpers, which no longer fall
+back to the CPU.
 
 The reference compiles its tier-B/C arithmetic slowly (a fused finish with
 panel groups of 4 takes minutes at p = 2**31 - 19); those primes run here
@@ -13,11 +13,13 @@ with one panel group, and p = 4294967291 in its own file
 (test_torch_fused_finish_tier_c.py) so that the two run side by side."""
 
 import importlib
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 import spasm_tpu as st
@@ -240,8 +242,8 @@ def _spies(monkeypatch):
     return calls
 
 
-def _both(A, tmp_path=None, port_kw=None, **kw):
-    want = interop.lu_arrays(st.echelonize(A, **kw))
+def _both(A, ref_kw=None, port_kw=None, **kw):
+    want = interop.lu_arrays(st.echelonize(A, **kw, **(ref_kw or {})))
     got = interop.lu_arrays(stt.echelonize(
         interop.sparse_from_reference(A), device="cpu", **kw,
         **(port_kw or {})))
@@ -261,11 +263,9 @@ def test_echelonize_takes_the_references_finish(case, monkeypatch,
     monkeypatch.setattr(dense, "HOST_CUTOFF", 1)
     calls = _spies(monkeypatch)
     kw = dict(max_round=0, dense_block_size=100)
-    port_kw = None
+    ref_kw = port_kw = None
     want_calls = {"ref": 1, "port": 1}
     if case == "low_rank":
-        import scipy.sparse as sp
-
         X = sp.random(700, 20, density=0.3, random_state=rng,
                       data_rvs=lambda k: rng.integers(1, 1000, k),
                       dtype=np.int64)
@@ -277,19 +277,58 @@ def test_echelonize_takes_the_references_finish(case, monkeypatch,
     else:
         A = SparseGFp.rand(F, 260, 180, 0.06, rng)
     if case == "checkpoint":
-        # the port streams (its sidecar protects the finish); the
-        # reference's fused finish writes none; the LU is the same
-        port_kw = dict(checkpoint=str(tmp_path / "ck.npz"))
-        want_calls = {"ref": 1, "port": 0}
+        # both take the fused finish, which writes no dense sidecar
+        ref_kw = dict(checkpoint=str(tmp_path / "ref.npz"))
+        port_kw = dict(checkpoint=str(tmp_path / "port.npz"))
     if case == "over_budget":
         monkeypatch.setattr(ref_dense, "FUSED_BUDGET", 0)
         monkeypatch.setattr(dense, "FUSED_BUDGET", 0)
         want_calls = {"ref": 0, "port": 0}
     if case == "L":
         kw["L"] = True
-    got = _both(A, port_kw=port_kw, **kw)
+    got = _both(A, ref_kw=ref_kw, port_kw=port_kw, **kw)
     assert calls == want_calls
     assert got["r"] > 0
+    if case == "checkpoint":
+        assert sorted(os.listdir(tmp_path)) == ["port.npz", "ref.npz"]
+
+
+def checkpoint_case(rng, head):
+    """A 300 x 180 matrix whose first ``head`` rows are zero in the first
+    24 columns, and whose last 50 rows are multiples of rows 0..49: in
+    blocks of ``head`` rows the pivots of rows head.. in those columns
+    come after the first block's, in blocks of _bucket(head) rows
+    before."""
+    F = field(42013)
+    M = SparseGFp.rand(F, 300, 180, 0.06, rng).to_scipy().tolil()
+    M[:head, :24] = 0
+    M = M.tocsr()
+    M = sp.vstack([M[:250], (M[:50] * 3).tocsr()]).tocsr()
+    M.data = F.normalize(M.data)
+    return SparseGFp.from_scipy(M, F.p)
+
+
+@pytest.mark.parametrize("block", [150, 200])
+def test_checkpointed_echelonize_matches_reference(block, monkeypatch,
+                                                   tmp_path):
+    """echelonize(A, checkpoint=) in the port against the reference's
+    echelonize(A, checkpoint=), every array of lu_arrays exactly, at block
+    heights whose bucket differs (the fused loop's blocks are 256 rows).
+    Failed before the port took the reference's fused finish under
+    checkpoint=: it streamed in blocks of ``block`` rows, listed the
+    pivots of rows ``block``.. after the first block's, and p, qinv,
+    piv_cols and U's indices differed."""
+    monkeypatch.setattr(ref_dense, "HOST_CUTOFF", 1)
+    monkeypatch.setattr(dense, "HOST_CUTOFF", 1)
+    calls = _spies(monkeypatch)
+    A = checkpoint_case(np.random.default_rng(block), block)
+    assert dense._bucket(block) != block
+    got = _both(A, ref_kw=dict(checkpoint=str(tmp_path / "ref.npz")),
+                port_kw=dict(checkpoint=str(tmp_path / "port.npz")),
+                max_round=0, dense_block_size=block)
+    assert calls == {"ref": 1, "port": 1}
+    assert 0 < got["r"] < A.n
+    assert not any(x.endswith(".dense") for x in os.listdir(tmp_path))
 
 
 def test_fused_finish_returns_none_without_pivots(monkeypatch):
