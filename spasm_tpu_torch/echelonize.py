@@ -47,6 +47,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
+import time
 import zipfile
 
 import numpy as np
@@ -63,6 +64,7 @@ from ._host.utils.logging import log, push_verbose, wtime
 from .ops import dense as dense_ops
 from .ops import sparse_device, sparse_onepass
 from .parallel import sparse_sharded
+from .utils.profiling import phase
 
 
 @dataclasses.dataclass
@@ -166,14 +168,41 @@ _LAST_STATS: dict = {}
 
 
 def last_phase_stats() -> dict:
-    """Per-phase walls of the most recent ``echelonize`` call in this
-    process: pivot_s, schur_s, finish_s, assemble_s, device_s, total_s,
-    and device_share = device_s / total_s.  device_s is the dense finish on
-    the device, ended by a synchronize, plus, with device_sparse_min_nnz,
-    the whole wall of each device sparse round: that round's host work
-    (mutual_reduce, class keys, tile building, assembly) included, so
-    device_share then does not measure the card's busy share (the
-    one-pass ``_stats`` device_s is the card's span)."""
+    """Per-phase walls (seconds, ``time.perf_counter``) of the most recent
+    ``echelonize`` call in this process.  Each key but device_s is fed by
+    one span of ``utils/profiling.phase``, which a running torch.profiler
+    also records as ``spasm.<span>``:
+
+    - total_s: ``echelonize``, the whole call, from entry to return;
+    - convert_s: ``convert``, ``A.to_scipy()`` and each round's
+      ``SparseGFp.from_scipy`` of the Schur complement;
+    - pivot_s: ``pivots``, each round's structural pivot search;
+    - estimate_s: ``estimate``, each round's pivot count test, Schur
+      density estimate, dense-switch test and fill filter (its second
+      estimate included);
+    - schur_s: ``schur``, each round's Schur update, without the estimate;
+    - finish_s: ``finish``, the finish after the rounds (dense or GPLU),
+      with its checkpoint sidecars' removal;
+    - finish_prep_s: ``finish.prep``, the finish's alive columns and
+      density gate, and the dense finish's COO build, normalize and sort,
+      up to the first upload;
+    - finish_wait_s: ``finish.wait``, the dense finish's block loop: on the
+      fused path the uploads and ``fused_blocked_finish`` up to the return
+      of the first readback; the whole streaming or host block loop
+      otherwise;
+    - finish_extract_s: ``finish.extract``, the dense finish's pivot lists,
+      U extraction (the fused path's second readback), and the host CSR,
+      column remap and reduction of U;
+    - assemble_s: ``assemble``, U, qinv, L and the canonical RREF;
+    - device_s: no span; the dense finish's block loop on the device, ended
+      by a synchronize, plus, with device_sparse_min_nnz, the whole wall of
+      each device sparse round, its host work included (the one-pass
+      ``_stats`` device_s is the card's span).
+
+    The top-level spans (convert, pivots, estimate, schur, finish,
+    assemble) leave out only the call's bookkeeping between them and the
+    round checkpoints; finish.prep, .wait and .extract tile the dense
+    finish.  Keys of spans not entered in the call are 0."""
     return dict(_LAST_STATS)
 
 
@@ -190,32 +219,43 @@ def echelonize(A: SparseGFp, opts: EchelonizeOptions | None = None,
     ``torch.distributed.device_mesh.DeviceMesh``; every rank calls with
     the same A, and ``device`` names the mesh's device type (each rank
     computes on its own device of that type)."""
-    device = torch.device(device)
-    if mesh is not None:
-        if mesh.device_type != device.type:
-            raise ValueError(f"device={str(device)!r} is not the mesh's "
-                             f"device type {mesh.device_type!r}")
-        device = sparse_sharded.mesh_device(mesh)
-    if device.type == "cuda":
-        torch.zeros(0, device=device)  # raises here when there is no card
-    opts = parse_echelonize_opts(opts, device=device, **kwargs)
-    if not isinstance(verbose, bool):
-        verbose = A.nnz >= verbose
-    with push_verbose(verbose):
-        return _echelonize_impl(A, opts, device, checkpoint, resume, mesh)
+    stats = {"total_s": 0.0, "convert_s": 0.0, "pivot_s": 0.0,
+             "estimate_s": 0.0, "schur_s": 0.0, "finish_s": 0.0,
+             "finish_prep_s": 0.0, "finish_wait_s": 0.0,
+             "finish_extract_s": 0.0, "assemble_s": 0.0, "device_s": 0.0}
+    with phase("echelonize", stats, key="total_s"):
+        device = torch.device(device)
+        if mesh is not None:
+            if mesh.device_type != device.type:
+                raise ValueError(f"device={str(device)!r} is not the mesh's "
+                                 f"device type {mesh.device_type!r}")
+            device = sparse_sharded.mesh_device(mesh)
+        if device.type == "cuda":
+            torch.zeros(0, device=device)  # raises here when there is no card
+        opts = parse_echelonize_opts(opts, device=device, **kwargs)
+        if not isinstance(verbose, bool):
+            verbose = A.nnz >= verbose
+        with push_verbose(verbose):
+            fact = _echelonize_impl(A, opts, device, stats, checkpoint,
+                                    resume, mesh)
+    global _LAST_STATS
+    _LAST_STATS = stats
+    return fact
 
 
 def _echelonize_impl(A: SparseGFp, opts: EchelonizeOptions,
-                     device: torch.device, checkpoint: str | None = None,
+                     device: torch.device, stats: dict,
+                     checkpoint: str | None = None,
                      resume: str | None = None, mesh=None) -> LU:
+    """The body of ``echelonize``; its spans add to ``stats``
+    (``last_phase_stats``)."""
     f = A.field
     n, m = A.shape
     t_start = wtime()
-    stats = {"pivot_s": 0.0, "schur_s": 0.0, "finish_s": 0.0,
-             "assemble_s": 0.0, "device_s": 0.0}
     log(f"[echelonize] Start on {n} x {m} matrix with {A.nnz} nnz")
 
-    S = A.to_scipy()                    # current Schur complement
+    with phase("convert", stats):
+        S = A.to_scipy()                # current Schur complement
     row_origin = np.arange(n, dtype=np.int64)
 
     U_blocks: list[sp.csr_matrix] = []  # scaled pivot row blocks
@@ -266,135 +306,142 @@ def _echelonize_impl(A: SparseGFp, opts: EchelonizeOptions,
         if S.shape[0] == 0 or S.nnz == 0:
             break
         log(f"[echelonize] round {round_idx}")
-        Sw = SparseGFp.from_scipy(S, f.p, assume_canonical=True)
-        t0 = wtime()
-        fl = col_election = None
-        if mesh is not None:
-            # the FL row and column elections over the mesh, bit-identical
-            # to the host strategies; the greedy completion runs on the
-            # host on every rank
-            fl = sparse_sharded.sharded_fl_election(f, mesh, Sw)
-            col_election = functools.partial(
-                sparse_sharded.sharded_fl_col_election, f, mesh, Sw)
-        prows, pcols, counts = find_structural_pivots(
-            Sw, enable_greedy=opts.enable_greedy_pivot_search, fl=fl,
-            col_election=col_election)
-        log(f"[pivots] Faugère-Lachartre: {counts['faugere-lachartre']} "
-            f"pivots found [{wtime() - t0:.1f}s]")
-        log(f"[pivots] ``Faugère-Lachartre on columns'': "
-            f"{counts['faugere-lachartre-cols']} pivots found "
-            f"[{wtime() - t0:.1f}s]")
-        log(f"[pivots] greedy cycle-free completion: {counts['greedy']} "
-            f"pivots found [{wtime() - t0:.1f}s]")
-        log(f"[pivots] {prows.size} pivots found")
-        stats["pivot_s"] += wtime() - t0
-        npiv = prows.size
-        row_lens = np.diff(S.indptr)
-        nrows_active = int((row_lens > 0).sum())
-        minkeep = opts.min_pivot_proportion * max(
-            1, min(nrows_active, S.shape[1]))
-        if npiv < minkeep:
-            log("[echelonize] not enough pivots found; stopping")
-            break
+        with phase("convert", stats):
+            Sw = SparseGFp.from_scipy(S, f.p, assume_canonical=True)
+        with phase("pivots", stats, key="pivot_s"):
+            t0 = wtime()
+            fl = col_election = None
+            if mesh is not None:
+                # the FL row and column elections over the mesh,
+                # bit-identical to the host strategies; the greedy
+                # completion runs on the host on every rank
+                fl = sparse_sharded.sharded_fl_election(f, mesh, Sw)
+                col_election = functools.partial(
+                    sparse_sharded.sharded_fl_col_election, f, mesh, Sw)
+            prows, pcols, counts = find_structural_pivots(
+                Sw, enable_greedy=opts.enable_greedy_pivot_search, fl=fl,
+                col_election=col_election)
+            log(f"[pivots] Faugère-Lachartre: "
+                f"{counts['faugere-lachartre']} pivots found "
+                f"[{wtime() - t0:.1f}s]")
+            log(f"[pivots] ``Faugère-Lachartre on columns'': "
+                f"{counts['faugere-lachartre-cols']} pivots found "
+                f"[{wtime() - t0:.1f}s]")
+            log(f"[pivots] greedy cycle-free completion: "
+                f"{counts['greedy']} pivots found [{wtime() - t0:.1f}s]")
+            log(f"[pivots] {prows.size} pivots found")
+        t0 = wtime()  # the Schur log line's clock: estimate and update
+        with phase("estimate", stats):
+            npiv = prows.size
+            row_lens = np.diff(S.indptr)
+            nrows_active = int((row_lens > 0).sum())
+            minkeep = opts.min_pivot_proportion * max(
+                1, min(nrows_active, S.shape[1]))
+            if npiv < minkeep:
+                log("[echelonize] not enough pivots found; stopping")
+                break
 
-        t0 = wtime()
-        # Monte-Carlo density estimate BEFORE paying for the full Schur;
-        # the rest-row gather is only needed by the L path and the device
-        # sparse path
-        need_rest = (opts.L or mesh is not None
-                     or bool(opts.device_sparse_min_nnz))
-        est, S_rest, rest_rows, blk = _round_schur_estimate(
-            f, S, prows, pcols, need_rest=need_rest)
-        Upart, piv_vals, levels_blk = blk
-        del blk
-        log(f"Schur complement is {rest_rows.size} x {S.shape[1]}, "
-            f"estimated density : {est:.2f}")
-        thresh = opts.sparsity_threshold
-        if (opts.device_sparsity_threshold is not None and opts.enable_dense
-                and opts.device_sparsity_threshold <= est < thresh
-                and _on_accelerator(device)
-                and _dense_feasible(S, opts, device)):
-            thresh = min(thresh, opts.device_sparsity_threshold)
-        if (est >= thresh and opts.enable_dense
-                and (round_idx > 0 or _dense_feasible(S, opts, device))):
-            log("[echelonize] Schur complement too dense; "
-                "switching to dense finish")
-            force_dense = True
-            break
-        if (opts.pivot_fill_filter and fill_filter_rejects < 2
-                and est * rest_rows.size * S.shape[1]
-                > opts.pivot_fill_filter * max(1, S.nnz)):
-            # predicted fill blow-up: drop the high-Markowitz-cost pivots
-            cc = np.bincount(S.indices, minlength=S.shape[1])
-            cost = ((row_lens[prows] - 1)
-                    * (cc[pcols] - 1)).astype(np.float64)
-            keep = cost <= 2.0 * max(1.0, float(np.median(cost)))
-            if keep.sum() >= minkeep and not keep.all():
-                pr2, pc2 = prows[keep], pcols[keep]
-                est2, S_rest2, rest2, blk2 = _round_schur_estimate(
-                    f, S, pr2, pc2, need_rest=need_rest)
-                if est2 * rest2.size <= 0.75 * est * rest_rows.size:
-                    log(f"[pivots] fill filter: deferring "
-                        f"{int((~keep).sum())} high-fill pivots "
-                        f"(predicted fill {est * rest_rows.size:.0f} -> "
-                        f"{est2 * rest2.size:.0f} row-equivalents)")
-                    prows, pcols = pr2, pc2
-                    npiv = prows.size
-                    est, S_rest, rest_rows = est2, S_rest2, rest2
-                    Upart, piv_vals, levels_blk = blk2
-                else:
-                    fill_filter_rejects += 1
-                del blk2
-        reduced_L = False
-        piv_L = None
-        S_new = C = None
-        if not opts.L and (mesh is not None or (
-                opts.device_sparse_min_nnz
-                and S_rest.nnz >= opts.device_sparse_min_nnz)):
-            # the round's U block stays the unreduced Upart, as in the
-            # reference
-            t_dev = wtime()
-            S_new = _device_sparse_schur(f, mesh, Upart, pcols, levels_blk,
-                                         S_rest, device)
-            stats["device_s"] += wtime() - t_dev
-        if S_new is None:
-            # mutual-reduce the round's pivot block once, then the Schur
-            # update of the remaining rows is a single product; with L,
-            # every row's coefficients against the REDUCED block are its
-            # values at the pivot columns (see the reference for the
-            # lp_order argument)
-            Ustar, ok = mutual_reduce(f, Upart, pcols, levels_blk)
-            if ok:
-                if opts.L:
-                    cmap = np.full(S.shape[1], -1, np.int64)
-                    cmap[pcols] = np.arange(npiv)
-                    Uc = sp.coo_matrix(Upart)
-                    pm = cmap[Uc.col] >= 0
-                    piv_L = (row_origin[prows][Uc.row[pm]],
-                             r + cmap[Uc.col[pm]],
-                             f.normalize(Uc.data[pm].astype(np.int64)
-                                         * piv_vals[Uc.row[pm]]))
-                    reduced_L = True
-                if S_rest is not None:
-                    S_new, C = eliminate_against_reduced(
-                        f, Ustar, pcols, S_rest, record_coeffs=opts.L,
-                        assume_canonical=True)
-                else:
-                    S_new, C = eliminate_against_reduced(
-                        f, Ustar, pcols, S, record_coeffs=False,
-                        assume_canonical=True, rows=rest_rows)
-                Upart = Ustar
-            else:  # fill blow-up guard: wave cascade
-                if S_rest is None:
-                    S_rest = _gather_rest(S, rest_rows)
-                S_new, C = wave_eliminate(f, Upart, pcols, levels_blk,
-                                          S_rest, record_coeffs=opts.L,
-                                          assume_canonical=True)
-        dens = S_new.nnz / max(1, S_new.shape[0] * S_new.shape[1])
-        log(f"Schur complement: {S_new.shape[0]} * {S_new.shape[1]} "
-            f"[{S_new.nnz} nz / density= {dens:.3f}], "
-            f"{wtime() - t0:.1f}s")
-        stats["schur_s"] += wtime() - t0
+            # Monte-Carlo density estimate BEFORE paying for the full
+            # Schur; the rest-row gather is only needed by the L path and
+            # the device sparse path
+            need_rest = (opts.L or mesh is not None
+                         or bool(opts.device_sparse_min_nnz))
+            est, S_rest, rest_rows, blk = _round_schur_estimate(
+                f, S, prows, pcols, need_rest=need_rest)
+            Upart, piv_vals, levels_blk = blk
+            del blk
+            log(f"Schur complement is {rest_rows.size} x {S.shape[1]}, "
+                f"estimated density : {est:.2f}")
+            thresh = opts.sparsity_threshold
+            if (opts.device_sparsity_threshold is not None
+                    and opts.enable_dense
+                    and opts.device_sparsity_threshold <= est < thresh
+                    and _on_accelerator(device)
+                    and _dense_feasible(S, opts, device)):
+                thresh = min(thresh, opts.device_sparsity_threshold)
+            if (est >= thresh and opts.enable_dense
+                    and (round_idx > 0
+                         or _dense_feasible(S, opts, device))):
+                log("[echelonize] Schur complement too dense; "
+                    "switching to dense finish")
+                force_dense = True
+                break
+            if (opts.pivot_fill_filter and fill_filter_rejects < 2
+                    and est * rest_rows.size * S.shape[1]
+                    > opts.pivot_fill_filter * max(1, S.nnz)):
+                # predicted fill blow-up: drop the high-Markowitz-cost
+                # pivots
+                cc = np.bincount(S.indices, minlength=S.shape[1])
+                cost = ((row_lens[prows] - 1)
+                        * (cc[pcols] - 1)).astype(np.float64)
+                keep = cost <= 2.0 * max(1.0, float(np.median(cost)))
+                if keep.sum() >= minkeep and not keep.all():
+                    pr2, pc2 = prows[keep], pcols[keep]
+                    est2, S_rest2, rest2, blk2 = _round_schur_estimate(
+                        f, S, pr2, pc2, need_rest=need_rest)
+                    if est2 * rest2.size <= 0.75 * est * rest_rows.size:
+                        log(f"[pivots] fill filter: deferring "
+                            f"{int((~keep).sum())} high-fill pivots "
+                            f"(predicted fill "
+                            f"{est * rest_rows.size:.0f} -> "
+                            f"{est2 * rest2.size:.0f} row-equivalents)")
+                        prows, pcols = pr2, pc2
+                        npiv = prows.size
+                        est, S_rest, rest_rows = est2, S_rest2, rest2
+                        Upart, piv_vals, levels_blk = blk2
+                    else:
+                        fill_filter_rejects += 1
+                    del blk2
+        with phase("schur", stats):
+            reduced_L = False
+            piv_L = None
+            S_new = C = None
+            if not opts.L and (mesh is not None or (
+                    opts.device_sparse_min_nnz
+                    and S_rest.nnz >= opts.device_sparse_min_nnz)):
+                # the round's U block stays the unreduced Upart, as in the
+                # reference
+                t_dev = time.perf_counter()
+                S_new = _device_sparse_schur(f, mesh, Upart, pcols,
+                                             levels_blk, S_rest, device)
+                stats["device_s"] += time.perf_counter() - t_dev
+            if S_new is None:
+                # mutual-reduce the round's pivot block once, then the Schur
+                # update of the remaining rows is a single product; with L,
+                # every row's coefficients against the REDUCED block are its
+                # values at the pivot columns (see the reference for the
+                # lp_order argument)
+                Ustar, ok = mutual_reduce(f, Upart, pcols, levels_blk)
+                if ok:
+                    if opts.L:
+                        cmap = np.full(S.shape[1], -1, np.int64)
+                        cmap[pcols] = np.arange(npiv)
+                        Uc = sp.coo_matrix(Upart)
+                        pm = cmap[Uc.col] >= 0
+                        piv_L = (row_origin[prows][Uc.row[pm]],
+                                 r + cmap[Uc.col[pm]],
+                                 f.normalize(Uc.data[pm].astype(np.int64)
+                                             * piv_vals[Uc.row[pm]]))
+                        reduced_L = True
+                    if S_rest is not None:
+                        S_new, C = eliminate_against_reduced(
+                            f, Ustar, pcols, S_rest, record_coeffs=opts.L,
+                            assume_canonical=True)
+                    else:
+                        S_new, C = eliminate_against_reduced(
+                            f, Ustar, pcols, S, record_coeffs=False,
+                            assume_canonical=True, rows=rest_rows)
+                    Upart = Ustar
+                else:  # fill blow-up guard: wave cascade
+                    if S_rest is None:
+                        S_rest = _gather_rest(S, rest_rows)
+                    S_new, C = wave_eliminate(f, Upart, pcols, levels_blk,
+                                              S_rest, record_coeffs=opts.L,
+                                              assume_canonical=True)
+            dens = S_new.nnz / max(1, S_new.shape[0] * S_new.shape[1])
+            log(f"Schur complement: {S_new.shape[0]} * {S_new.shape[1]} "
+                f"[{S_new.nnz} nz / density= {dens:.3f}], "
+                f"{wtime() - t0:.1f}s")
 
         if opts.L:
             if reduced_L:
@@ -420,130 +467,136 @@ def _echelonize_impl(A: SparseGFp, opts: EchelonizeOptions,
                              piv_origin_all, L_parts, L_rev_segments)
 
     # ---------------- finish ----------------
-    t_finish = wtime()
     dense_piv_start = None
-    if S.shape[0] and S.nnz:
-        nrows = int((np.diff(S.indptr) > 0).sum())
-        alive_mask = np.zeros(S.shape[1], bool)
-        alive_mask[S.indices] = True
-        alive_cols = np.flatnonzero(alive_mask)
-        dens = S.nnz / max(1, nrows * alive_cols.size)
-        aspect = S.shape[0] / max(1, S.shape[1])
-        log(f"[echelonize] finishing; density = {dens:.3f}; "
-            f"aspect ratio = {aspect:.1f}")
-        dense_elems = nrows * alive_cols.size
-        na = alive_cols.size
-        # on a card the finish's density gate drops to
-        # device_sparsity_threshold, like the round loop's dense switch
-        thresh_fin = opts.sparsity_threshold
-        if (opts.device_sparsity_threshold is not None and opts.enable_dense
-                and _on_accelerator(device)):
-            thresh_fin = min(thresh_fin, opts.device_sparsity_threshold)
-        use_dense = (opts.enable_dense
-                     and (opts.dense_block_size + min(nrows, na)) * na
-                     <= opts.dense_budget
-                     and (force_dense
-                          or dens >= thresh_fin
-                          or not opts.enable_GPLU
-                          or dense_elems <= 1_000_000
-                          or (opts.enable_tall_and_skinny
-                              and nrows > opts.tall_and_skinny_ratio * na)))
-        if use_dense:
-            # a resume-only run keeps saving (and finally deletes) the
-            # sidecar it was resumed from
-            ckpt_base = (checkpoint or resume) if writer else None
-            blk = _dense_finish_blocked(
-                f, S, row_origin, alive_cols, r, opts, L_parts, device, stats,
-                ckpt_path=(ckpt_base + ".dense" if ckpt_base else None),
-                dense_resume=dense_resume)
+    with phase("finish", stats):
+        if S.shape[0] and S.nnz:
+            with phase("finish.prep", stats):
+                nrows = int((np.diff(S.indptr) > 0).sum())
+                alive_mask = np.zeros(S.shape[1], bool)
+                alive_mask[S.indices] = True
+                alive_cols = np.flatnonzero(alive_mask)
+                dens = S.nnz / max(1, nrows * alive_cols.size)
+                aspect = S.shape[0] / max(1, S.shape[1])
+                log(f"[echelonize] finishing; density = {dens:.3f}; "
+                    f"aspect ratio = {aspect:.1f}")
+                dense_elems = nrows * alive_cols.size
+                na = alive_cols.size
+                # on a card the finish's density gate drops to
+                # device_sparsity_threshold, like the round loop's dense
+                # switch
+                thresh_fin = opts.sparsity_threshold
+                if (opts.device_sparsity_threshold is not None
+                        and opts.enable_dense and _on_accelerator(device)):
+                    thresh_fin = min(thresh_fin,
+                                     opts.device_sparsity_threshold)
+                use_dense = (
+                    opts.enable_dense
+                    and (opts.dense_block_size + min(nrows, na)) * na
+                    <= opts.dense_budget
+                    and (force_dense
+                         or dens >= thresh_fin
+                         or not opts.enable_GPLU
+                         or dense_elems <= 1_000_000
+                         or (opts.enable_tall_and_skinny
+                             and nrows > opts.tall_and_skinny_ratio * na)))
+            if use_dense:
+                # a resume-only run keeps saving (and finally deletes) the
+                # sidecar it was resumed from
+                ckpt_base = (checkpoint or resume) if writer else None
+                blk = _dense_finish_blocked(
+                    f, S, row_origin, alive_cols, r, opts, L_parts, device,
+                    stats,
+                    ckpt_path=(ckpt_base + ".dense" if ckpt_base else None),
+                    dense_resume=dense_resume)
+                if blk is not None:
+                    dense_piv_start = r
+            else:
+                if not opts.enable_GPLU:
+                    log("[echelonize] enable_GPLU=False but the dense finish "
+                        "is unavailable (enable_dense/dense_budget); falling "
+                        "back to GPLU anyway")
+                blk = _gplu_finish(f, S, row_origin, r, opts, L_parts)
             if blk is not None:
-                dense_piv_start = r
-        else:
-            if not opts.enable_GPLU:
-                log("[echelonize] enable_GPLU=False but the dense finish is "
-                    "unavailable (enable_dense/dense_budget); falling back "
-                    "to GPLU anyway")
-            blk = _gplu_finish(f, S, row_origin, r, opts, L_parts)
-        if blk is not None:
-            Upart, pcols, porig = blk
-            U_blocks.append(Upart)
-            piv_cols_all.append(pcols)
-            piv_origin_all.append(porig)
-            r += pcols.size
-    if writer:
-        # the finish is done: both sidecars are stale, whichever finish ran
-        for base in {checkpoint, resume} - {None}:
-            if os.path.exists(base + ".dense"):
-                os.unlink(base + ".dense")
-    if mesh is not None and (checkpoint or resume):
-        # no rank returns (and maybe reads the files again) before rank 0
-        # has written and deleted them
-        sparse_sharded.barrier(mesh)
-    stats["finish_s"] = wtime() - t_finish
+                Upart, pcols, porig = blk
+                U_blocks.append(Upart)
+                piv_cols_all.append(pcols)
+                piv_origin_all.append(porig)
+                r += pcols.size
+        if writer:
+            # the finish is done: both sidecars are stale, whichever finish
+            # ran
+            for base in {checkpoint, resume} - {None}:
+                if os.path.exists(base + ".dense"):
+                    os.unlink(base + ".dense")
+        if mesh is not None and (checkpoint or resume):
+            # no rank returns (and maybe reads the files again) before rank
+            # 0 has written and deleted them
+            sparse_sharded.barrier(mesh)
 
     # ---------------- assemble ----------------
-    t_assemble = wtime()
-    if U_blocks:
-        U_sp = sp.vstack([sp.csr_matrix(b) for b in U_blocks], format="csr")
-        piv_cols = np.concatenate(piv_cols_all)
-        p_vec = np.concatenate(piv_origin_all)
-    else:
-        U_sp = sp.csr_matrix((0, m), dtype=np.int64)
-        piv_cols = np.zeros(0, np.int64)
-        p_vec = np.zeros(0, np.int64)
-    U = SparseGFp.from_scipy(U_sp, f.p, assume_canonical=True)
-    qinv = np.full(m, -1, np.int64)
-    qinv[piv_cols] = np.arange(r)
-
-    L = None
-    lp_order = None
-    if opts.L:
-        if L_parts:
-            li = np.concatenate([np.asarray(t[0], np.int64) for t in L_parts])
-            lj = np.concatenate([np.asarray(t[1], np.int64) for t in L_parts])
-            lv = np.concatenate([np.asarray(t[2], np.int64) for t in L_parts])
+    with phase("assemble", stats):
+        if U_blocks:
+            U_sp = sp.vstack([sp.csr_matrix(b) for b in U_blocks],
+                             format="csr")
+            piv_cols = np.concatenate(piv_cols_all)
+            p_vec = np.concatenate(piv_origin_all)
         else:
-            li = lj = lv = np.zeros(0, np.int64)
-        L = SparseGFp.from_coo(f, n, r, li, lj, lv, sum_duplicates=False)
-        if L_rev_segments:
-            lp_order = np.arange(r, dtype=np.int64)
-            for s0, ln in L_rev_segments:
-                lp_order[s0:s0 + ln] = lp_order[s0:s0 + ln][::-1]
+            U_sp = sp.csr_matrix((0, m), dtype=np.int64)
+            piv_cols = np.zeros(0, np.int64)
+            p_vec = np.zeros(0, np.int64)
+        U = SparseGFp.from_scipy(U_sp, f.p, assume_canonical=True)
+        qinv = np.full(m, -1, np.int64)
+        qinv[piv_cols] = np.arange(r)
 
-    fact = LU(field=f, n=n, m=m, r=r, complete=False, U=U, qinv=qinv,
-              p=p_vec, piv_cols=piv_cols, L=L,
-              dense_piv_start=dense_piv_start, lp_order=lp_order,
-              _device=str(device))
-    if opts.complete:
-        from .solve import rref_of_U, rref_qinv_of  # cycle-free import
-
-        # the canonical RREF's pivot columns are its rows' leading columns
-        # (they can differ from the factorization's pivot choices); against
-        # an RREF any row's elimination coefficients are its values at the
-        # pivot columns, so L becomes a column selection of A.
-        R = rref_of_U(fact)
-        qinv_c = rref_qinv_of(R)
-        piv_cols_c = np.flatnonzero(qinv_c >= 0)[
-            np.argsort(qinv_c[qinv_c >= 0], kind="stable")]
-        L_c = None
+        L = None
+        lp_order = None
         if opts.L:
-            sel = np.full(m, -1, np.int64)
-            sel[piv_cols_c] = np.arange(r)
-            L_c = A.select_cols(sel, r)
-        # provenance: RREF rows are combinations, keep the original pivot
-        # rows sorted by their columns as representatives
-        order = np.argsort(piv_cols, kind="stable")
-        fact = dataclasses.replace(
-            fact, U=R, complete=True, qinv=qinv_c, piv_cols=piv_cols_c,
-            p=p_vec[order], _levels=np.zeros(r, np.int64), L=L_c,
-            dense_piv_start=0 if opts.L else None,  # L_c is not triangular
-            lp_order=None)
-    stats["assemble_s"] = wtime() - t_assemble
-    stats["total_s"] = wtime() - t_start
-    stats["device_share"] = (stats["device_s"] / stats["total_s"]
-                             if stats["total_s"] else 0.0)
-    global _LAST_STATS
-    _LAST_STATS = dict(stats)
+            if L_parts:
+                li = np.concatenate([np.asarray(t[0], np.int64)
+                                     for t in L_parts])
+                lj = np.concatenate([np.asarray(t[1], np.int64)
+                                     for t in L_parts])
+                lv = np.concatenate([np.asarray(t[2], np.int64)
+                                     for t in L_parts])
+            else:
+                li = lj = lv = np.zeros(0, np.int64)
+            L = SparseGFp.from_coo(f, n, r, li, lj, lv,
+                                   sum_duplicates=False)
+            if L_rev_segments:
+                lp_order = np.arange(r, dtype=np.int64)
+                for s0, ln in L_rev_segments:
+                    lp_order[s0:s0 + ln] = lp_order[s0:s0 + ln][::-1]
+
+        fact = LU(field=f, n=n, m=m, r=r, complete=False, U=U, qinv=qinv,
+                  p=p_vec, piv_cols=piv_cols, L=L,
+                  dense_piv_start=dense_piv_start, lp_order=lp_order,
+                  _device=str(device))
+        if opts.complete:
+            from .solve import rref_of_U, rref_qinv_of  # cycle-free import
+
+            # the canonical RREF's pivot columns are its rows' leading
+            # columns (they can differ from the factorization's pivot
+            # choices); against an RREF any row's elimination coefficients
+            # are its values at the pivot columns, so L becomes a column
+            # selection of A.
+            R = rref_of_U(fact)
+            qinv_c = rref_qinv_of(R)
+            piv_cols_c = np.flatnonzero(qinv_c >= 0)[
+                np.argsort(qinv_c[qinv_c >= 0], kind="stable")]
+            L_c = None
+            if opts.L:
+                sel = np.full(m, -1, np.int64)
+                sel[piv_cols_c] = np.arange(r)
+                L_c = A.select_cols(sel, r)
+            # provenance: RREF rows are combinations, keep the original
+            # pivot rows sorted by their columns as representatives
+            order = np.argsort(piv_cols, kind="stable")
+            fact = dataclasses.replace(
+                fact, U=R, complete=True, qinv=qinv_c, piv_cols=piv_cols_c,
+                p=p_vec[order], _levels=np.zeros(r, np.int64), L=L_c,
+                # L_c is not triangular
+                dense_piv_start=0 if opts.L else None,
+                lp_order=None)
     log(f"[echelonize] Done in {wtime() - t_start:.1f}s. Rank {r}, "
         f"{U.nnz} nz in basis")
     return fact
@@ -779,66 +832,72 @@ def _dense_finish_blocked(f: Field, S, row_origin, alive_cols, r0, opts,
     Jordan RREF.  Memory is O((block + rank_tail) * na).  Small problems
     run on the host (NumPy int64); the others on ``device``, whose wall is
     added to stats["device_s"].  In low-rank situations a randomized check
-    certifies the tail dependent and skips it (not with L).
+    certifies the tail dependent and skips it (not with L).  Its spans
+    ``finish.prep``, ``finish.wait`` and ``finish.extract`` add to
+    ``stats`` (``last_phase_stats``).
 
     With ``ckpt_path`` the block state is saved there; ``dense_resume`` (a
     loaded sidecar) continues from it when it matches this finish's inputs
     and is ignored otherwise."""
-    n_s = S.shape[0]
-    na = alive_cols.size
-    bs = min(n_s, max(128, opts.dense_block_size))
-    colmap = np.full(S.shape[1], -1, np.int64)
-    colmap[alive_cols] = np.arange(na)
-    Sc = S.tocoo()
-    rows_all = Sc.row
-    cols_all = colmap[Sc.col]
-    vals_all = f.normalize(Sc.data)
-    order = np.argsort(rows_all, kind="stable")
-    rows_all, cols_all, vals_all = (rows_all[order], cols_all[order],
-                                    vals_all[order])
+    with phase("finish.prep", stats):
+        n_s = S.shape[0]
+        na = alive_cols.size
+        bs = min(n_s, max(128, opts.dense_block_size))
+        colmap = np.full(S.shape[1], -1, np.int64)
+        colmap[alive_cols] = np.arange(na)
+        Sc = S.tocoo()
+        rows_all = Sc.row
+        cols_all = colmap[Sc.col]
+        vals_all = f.normalize(Sc.data)
+        order = np.argsort(rows_all, kind="stable")
+        rows_all, cols_all, vals_all = (rows_all[order], cols_all[order],
+                                        vals_all[order])
 
-    # a sidecar of another matrix, round or tail is ignored, not resumed
-    ckpt_meta = dict(field_p=f.p, r0=r0, s_nnz=int(S.nnz), n_s=n_s, na=na)
-    if dense_resume is not None:
-        if any(dense_resume.get(k) != v for k, v in ckpt_meta.items()):
-            log("[echelonize/dense] sidecar does not match this finish; "
-                "starting from block 0")
-            dense_resume = None
-        else:
-            log(f"[echelonize/dense] resuming at block offset "
-                f"{dense_resume['b0']}")
+        # a sidecar of another matrix, round or tail is ignored, not resumed
+        ckpt_meta = dict(field_p=f.p, r0=r0, s_nnz=int(S.nnz), n_s=n_s, na=na)
+        if dense_resume is not None:
+            if any(dense_resume.get(k) != v for k, v in ckpt_meta.items()):
+                log("[echelonize/dense] sidecar does not match this finish; "
+                    "starting from block 0")
+                dense_resume = None
+            else:
+                log(f"[echelonize/dense] resuming at block offset "
+                    f"{dense_resume['b0']}")
 
-    device_mode = bs * na >= dense_ops.host_cutoff_for(f)
-    log(f"[echelonize/dense] processing {n_s} x {na} in blocks of {bs} "
-        f"({'device' if device_mode else 'host'})")
-    loop_kw = dict(ckpt_path=ckpt_path, resume_state=dense_resume,
-                   ckpt_meta=ckpt_meta)
+        device_mode = bs * na >= dense_ops.host_cutoff_for(f)
+        log(f"[echelonize/dense] processing {n_s} x {na} in blocks of {bs} "
+            f"({'device' if device_mode else 'host'})")
+        loop_kw = dict(ckpt_path=ckpt_path, resume_state=dense_resume,
+                       ckpt_meta=ckpt_meta)
     if device_mode:
-        t_dev = wtime()
+        t_dev = time.perf_counter()
         result = _blocked_device_loop(f, n_s, na, bs, rows_all, cols_all,
-                                      vals_all, opts, device, **loop_kw)
+                                      vals_all, opts, device, stats=stats,
+                                      **loop_kw)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        stats["device_s"] += wtime() - t_dev
+        stats["device_s"] += time.perf_counter() - t_dev
     else:
-        result = _blocked_host_loop(f, n_s, na, bs, rows_all, cols_all,
-                                    vals_all, opts, **loop_kw)
+        with phase("finish.wait", stats):
+            result = _blocked_host_loop(f, n_s, na, bs, rows_all, cols_all,
+                                        vals_all, opts, **loop_kw)
     if result is None:
         return None
-    Usp_local, piv_cols_loc, piv_rows_glob = result
-    r_d = piv_cols_loc.size
-    log(f"[echelonize/dense] done, {r_d} pivots")
-    Usp = sp.csr_matrix(Usp_local)
-    Usp = sp.csr_matrix((Usp.data, alive_cols[Usp.indices], Usp.indptr),
-                        shape=(r_d, S.shape[1]))
-    pcols = alive_cols[piv_cols_loc]
-    porig = row_origin[piv_rows_glob]
-    if opts.L:
-        # the dense U block is a full RREF: every S row reduces against it
-        # with coefficients = its values at the pivot columns
-        Csub = sp.csc_matrix(S)[:, pcols].tocoo()
-        L_parts.append((row_origin[Csub.row], r0 + Csub.col, Csub.data))
-    return mod_reduce(Usp, f), pcols.astype(np.int64), porig
+    with phase("finish.extract", stats):
+        Usp_local, piv_cols_loc, piv_rows_glob = result
+        r_d = piv_cols_loc.size
+        log(f"[echelonize/dense] done, {r_d} pivots")
+        Usp = sp.csr_matrix(Usp_local)
+        Usp = sp.csr_matrix((Usp.data, alive_cols[Usp.indices], Usp.indptr),
+                            shape=(r_d, S.shape[1]))
+        pcols = alive_cols[piv_cols_loc]
+        porig = row_origin[piv_rows_glob]
+        if opts.L:
+            # the dense U block is a full RREF: every S row reduces against
+            # it with coefficients = its values at the pivot columns
+            Csub = sp.csc_matrix(S)[:, pcols].tocoo()
+            L_parts.append((row_origin[Csub.row], r0 + Csub.col, Csub.data))
+        return mod_reduce(Usp, f), pcols.astype(np.int64), porig
 
 
 def _block_slice(rows_all, cols_all, vals_all, b0, b1):
@@ -927,7 +986,7 @@ def _low_rank_mode(opts, rank_so_far, rows_processed, n_s):
 
 def _blocked_device_loop(f, n_s, na, bs, rows_all, cols_all, vals_all,
                          opts, device: torch.device, ckpt_path=None,
-                         resume_state=None, ckpt_meta=None):
+                         resume_state=None, ckpt_meta=None, stats=None):
     """The dense finish's block loop on ``device``.
 
     Where the reference takes its single-dispatch finish (not low-rank
@@ -941,7 +1000,10 @@ def _blocked_device_loop(f, n_s, na, bs, rows_all, cols_all, vals_all,
     holds a pivot, and in low-rank mode a dry block triggers the randomized
     tail check.  A sidecar save pulls ``Ud[:r_d]`` to the host; a resume
     puts it back.  The fused finish writes no sidecar, as the reference's:
-    a resume from a checkpoint it left finds none and runs it again."""
+    a resume from a checkpoint it left finds none and runs it again.
+    ``stats`` takes the spans ``finish.wait`` (the loop, up to the first
+    readback on the fused path) and ``finish.extract``."""
+    stats = {} if stats is None else stats
     bs_b = dense_ops._bucket(bs)
     na_b = dense_ops._bucket(na)
     low_rank_possible = (opts.enable_tall_and_skinny and not opts.L
@@ -950,91 +1012,100 @@ def _blocked_device_loop(f, n_s, na, bs, rows_all, cols_all, vals_all,
     if (not low_rank_possible and resume_state is None
             and n_pad * na_b <= dense_ops.FUSED_BUDGET):
         return _fused_device_finish(f, n_s, na, na_b, bs_b, rows_all,
-                                    cols_all, vals_all, device)
-    cap = min(n_s, na)
-    Ud = torch.zeros((cap, na), dtype=torch.int32, device=device)
-    pc_map = torch.zeros(cap, dtype=torch.int64, device=device)
-    r_d = 0
-    piv_cols_loc: list[int] = []
-    piv_rows_glob: list[int] = []
-    dry_blocks = 0
-    b0 = 0
-    if resume_state is not None:
-        piv_cols_loc = list(resume_state["piv_cols_loc"])
-        piv_rows_glob = list(resume_state["piv_rows_glob"])
-        dry_blocks = resume_state["dry_blocks"]
-        b0 = resume_state["b0"]
-        r_d = len(piv_cols_loc)
-        if r_d:
-            Ud[:r_d] = torch.from_numpy(
-                resume_state["Uh"].astype(np.int32)).to(device)
-            pc_map[:r_d] = torch.tensor(piv_cols_loc, dtype=torch.int64,
-                                        device=device)
-    last_save = wtime()
-    while b0 < n_s and r_d < na:
-        b1 = min(n_s, b0 + bs)
-        ri, ci, vi = _block_slice(rows_all, cols_all, vals_all, b0, b1)
-        r_d, new_rank, prow_of, pcol_of = dense_ops.blocked_finish_step(
-            f, (b1 - b0, na), dense_ops.DEFAULT_PANEL, ri, ci, vi, Ud,
-            pc_map, r_d)
-        if new_rank:
-            piv_cols_loc.extend(pcol_of[:new_rank].tolist())
-            piv_rows_glob.extend((b0 + prow_of[:new_rank]).tolist())
-            dry_blocks = 0
-        else:
-            dry_blocks += 1
-        b0 = b1
-        if (ckpt_path and b0 < n_s
-                and wtime() - last_save >= DENSE_CKPT_INTERVAL_S):
-            _save_dense_ckpt(ckpt_path, ckpt_meta, b0,
-                             Ud[:r_d].cpu().numpy().astype(np.int64),
-                             piv_cols_loc, piv_rows_glob, dry_blocks)
-            last_save = wtime()
-        if (low_rank_possible and dry_blocks >= 1 and piv_cols_loc
-                and _low_rank_mode(opts, len(piv_cols_loc), b0, n_s)):
-            Uh = Ud[:r_d].cpu().numpy().astype(np.int64)
-            if _randomized_tail_is_dependent(
-                    f, rows_all, cols_all, vals_all, b0, n_s, na, Uh,
-                    np.array(piv_cols_loc, np.int64), opts):
-                log(f"[echelonize/dense] randomized check: remaining "
-                    f"{n_s - b0} rows dependent; skipping")
-                break
+                                    cols_all, vals_all, device, stats=stats)
+    with phase("finish.wait", stats):
+        cap = min(n_s, na)
+        Ud = torch.zeros((cap, na), dtype=torch.int32, device=device)
+        pc_map = torch.zeros(cap, dtype=torch.int64, device=device)
+        r_d = 0
+        piv_cols_loc: list[int] = []
+        piv_rows_glob: list[int] = []
+        dry_blocks = 0
+        b0 = 0
+        if resume_state is not None:
+            piv_cols_loc = list(resume_state["piv_cols_loc"])
+            piv_rows_glob = list(resume_state["piv_rows_glob"])
+            dry_blocks = resume_state["dry_blocks"]
+            b0 = resume_state["b0"]
+            r_d = len(piv_cols_loc)
+            if r_d:
+                Ud[:r_d] = torch.from_numpy(
+                    resume_state["Uh"].astype(np.int32)).to(device)
+                pc_map[:r_d] = torch.tensor(piv_cols_loc, dtype=torch.int64,
+                                            device=device)
+        last_save = wtime()
+        while b0 < n_s and r_d < na:
+            b1 = min(n_s, b0 + bs)
+            ri, ci, vi = _block_slice(rows_all, cols_all, vals_all, b0, b1)
+            r_d, new_rank, prow_of, pcol_of = dense_ops.blocked_finish_step(
+                f, (b1 - b0, na), dense_ops.DEFAULT_PANEL, ri, ci, vi, Ud,
+                pc_map, r_d)
+            if new_rank:
+                piv_cols_loc.extend(pcol_of[:new_rank].tolist())
+                piv_rows_glob.extend((b0 + prow_of[:new_rank]).tolist())
+                dry_blocks = 0
+            else:
+                dry_blocks += 1
+            b0 = b1
+            if (ckpt_path and b0 < n_s
+                    and wtime() - last_save >= DENSE_CKPT_INTERVAL_S):
+                _save_dense_ckpt(ckpt_path, ckpt_meta, b0,
+                                 Ud[:r_d].cpu().numpy().astype(np.int64),
+                                 piv_cols_loc, piv_rows_glob, dry_blocks)
+                last_save = wtime()
+            if (low_rank_possible and dry_blocks >= 1 and piv_cols_loc
+                    and _low_rank_mode(opts, len(piv_cols_loc), b0, n_s)):
+                Uh = Ud[:r_d].cpu().numpy().astype(np.int64)
+                if _randomized_tail_is_dependent(
+                        f, rows_all, cols_all, vals_all, b0, n_s, na, Uh,
+                        np.array(piv_cols_loc, np.int64), opts):
+                    log(f"[echelonize/dense] randomized check: remaining "
+                        f"{n_s - b0} rows dependent; skipping")
+                    break
     if r_d == 0:
         return None
-    Usp = dense_ops.extract_u_csr(Ud, pc_map, r_d, na, piv_cols_loc)
-    return (Usp, np.array(piv_cols_loc, np.int64),
-            np.array(piv_rows_glob, np.int64))
+    with phase("finish.extract", stats):
+        Usp = dense_ops.extract_u_csr(Ud, pc_map, r_d, na, piv_cols_loc)
+        return (Usp, np.array(piv_cols_loc, np.int64),
+                np.array(piv_rows_glob, np.int64))
 
 
 def _fused_device_finish(f, n_s, na, na_b, bs, rows_all, cols_all,
-                         vals_all, device):
+                         vals_all, device, stats=None):
     """The reference's single-dispatch dense finish: the whole block loop
     in ``dense_ops.fused_blocked_finish`` (one CUDA graph on a card), then
     exactly two reads: every block's rank and pivots in one copy, and the
-    sparse extraction of the accumulated U."""
+    sparse extraction of the accumulated U.  ``stats`` takes the spans
+    ``finish.wait`` (the uploads to the first read's return) and
+    ``finish.extract`` (the rest)."""
+    stats = {} if stats is None else stats
     n_pad = -(-n_s // bs) * bs
-    rows, cols, vals = (dense_ops.upload(x, dt, device) for x, dt in (
-        (rows_all, np.int64), (cols_all, np.int64), (vals_all, np.int32)))
-    Ud, pc_map, _, ranks, prows, pcols = dense_ops.fused_blocked_finish(
-        f, (n_pad, na_b), na, bs, dense_ops.DEFAULT_PANEL, rows, cols, vals)
     nb = n_pad // bs
-    meta = torch.cat([ranks, prows.reshape(-1), pcols.reshape(-1)])
-    meta = meta.cpu().numpy()
-    ranks = meta[:nb]
-    prows = meta[nb:nb + nb * bs].reshape(nb, bs)
-    pcols = meta[nb + nb * bs:].reshape(nb, bs)
-    piv_cols_loc: list[int] = []
-    piv_rows_glob: list[int] = []
-    for b in np.flatnonzero(ranks):
-        k = int(ranks[b])
-        piv_cols_loc.extend(pcols[b, :k].tolist())
-        piv_rows_glob.extend((b * bs + prows[b, :k]).tolist())
-    r_d = len(piv_cols_loc)
-    if r_d == 0:
-        return None
-    Usp = dense_ops.extract_u_csr(Ud, pc_map, r_d, na, piv_cols_loc)
-    return (Usp, np.array(piv_cols_loc, np.int64),
-            np.array(piv_rows_glob, np.int64))
+    with phase("finish.wait", stats):
+        rows, cols, vals = (dense_ops.upload(x, dt, device) for x, dt in (
+            (rows_all, np.int64), (cols_all, np.int64),
+            (vals_all, np.int32)))
+        Ud, pc_map, _, ranks, prows, pcols = dense_ops.fused_blocked_finish(
+            f, (n_pad, na_b), na, bs, dense_ops.DEFAULT_PANEL, rows, cols,
+            vals)
+        meta = torch.cat([ranks, prows.reshape(-1), pcols.reshape(-1)])
+        meta = meta.cpu().numpy()
+    with phase("finish.extract", stats):
+        ranks = meta[:nb]
+        prows = meta[nb:nb + nb * bs].reshape(nb, bs)
+        pcols = meta[nb + nb * bs:].reshape(nb, bs)
+        piv_cols_loc: list[int] = []
+        piv_rows_glob: list[int] = []
+        for b in np.flatnonzero(ranks):
+            k = int(ranks[b])
+            piv_cols_loc.extend(pcols[b, :k].tolist())
+            piv_rows_glob.extend((b * bs + prows[b, :k]).tolist())
+        r_d = len(piv_cols_loc)
+        if r_d == 0:
+            return None
+        Usp = dense_ops.extract_u_csr(Ud, pc_map, r_d, na, piv_cols_loc)
+        return (Usp, np.array(piv_cols_loc, np.int64),
+                np.array(piv_rows_glob, np.int64))
 
 
 def _randomized_tail_is_dependent(f, rows_all, cols_all, vals_all, b0, n_s,
