@@ -569,6 +569,52 @@ def greedy_scan_native(indptr, indices, row_used, col_selected,
     return int(count), elig
 
 
+def _configure_greedy(lib):
+    fn = lib.spasm_tpu_greedy_pivots
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int64, _I64P, _I32P,
+                   _U8P, _U8P, _F64P, _F64P, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int64, _I64P, _I64P, _F64P]
+
+
+def greedy_pivots_native(indptr, indices, col_selected, row_used,
+                         piv_pos_of_col, col_touch_max, max_passes=2,
+                         mopup=True, cap=4096):
+    """The greedy cycle-free completion of ``pivots.greedy_pivots``, its
+    batched passes and its sequential mop-up, in one call
+    (csrc/greedy_mod.c, a source of the port alone).  Reads the CSR and
+    updates the four state arrays in place (bool ``col_selected`` /
+    ``row_used``, float64 positions, all C-contiguous), bit-identically to
+    the NumPy formulation.  Returns (rows, cols, pos), or None when the
+    native library is unavailable, the indices exceed int32 or a state
+    array cannot be updated in place; the state is then unchanged."""
+    lib = _load("greedy_mod", _configure_greedy, extra_flags=("-fopenmp",))
+    n = row_used.shape[0]
+    m = col_selected.shape[0]
+    if lib is None or max(n, m) >= np.iinfo(np.int32).max:
+        return None
+    for a, dt in ((col_selected, np.bool_), (row_used, np.bool_),
+                  (piv_pos_of_col, np.float64), (col_touch_max, np.float64)):
+        if a.dtype != dt or not a.flags.c_contiguous or not a.flags.writeable:
+            return None
+    indptr = np.ascontiguousarray(indptr, dtype=np.int64)
+    indices = np.ascontiguousarray(indices, dtype=np.int32)
+    cap_out = min(n, m)
+    rows = np.empty(cap_out, np.int64)
+    cols = np.empty(cap_out, np.int64)
+    pos = np.empty(cap_out, np.float64)
+    count = lib.spasm_tpu_greedy_pivots(
+        n, m, indptr.ctypes.data_as(_I64P), indices.ctypes.data_as(_I32P),
+        col_selected.ctypes.data_as(_U8P), row_used.ctypes.data_as(_U8P),
+        piv_pos_of_col.ctypes.data_as(_F64P),
+        col_touch_max.ctypes.data_as(_F64P), max_passes, int(mopup), cap,
+        rows.ctypes.data_as(_I64P), cols.ctypes.data_as(_I64P),
+        pos.ctypes.data_as(_F64P))
+    if count < 0:
+        return None
+    return rows[:count].copy(), cols[:count].copy(), pos[:count].copy()
+
+
 def _configure_schur_ranged(lib):
     fn = lib.spasm_tpu_schur_update_ranged
     fn.restype = ctypes.c_int64

@@ -167,6 +167,11 @@ def fl_col_pivots(A: SparseGFp, col_selected, row_used, entries=None):
     return rows_c.astype(np.int64), cols_c.astype(np.int64)
 
 
+# calls of greedy_pivots whose completion ran in C ("native") and in the
+# NumPy body ("numpy"), over the process's life
+GREEDY_RUNS = {"native": 0, "numpy": 0}
+
+
 def greedy_pivots(A: SparseGFp, col_selected, row_used, positions,
                   piv_pos_of_col, col_touch_max, max_passes=2,
                   mopup=True, entries=None):
@@ -190,7 +195,24 @@ def greedy_pivots(A: SparseGFp, col_selected, row_used, positions,
     includes c; piv_pos_of_col[c] the position of the pivot on column c
     (+inf if none).  All four state arrays are updated in place.
     Returns (rows, cols, pos) of the newly selected pivots.
+
+    The completion runs in C (native.greedy_pivots_native) straight off
+    A's CSR and the state; the NumPy body below, bit-identical, runs where
+    the native library is unavailable.  ``GREEDY_RUNS`` counts the calls
+    of each.  entries: the (row, col) pairs of A's entries of rows unused
+    at some earlier point (a caller-shared compression), read only by the
+    NumPy body.
     """
+    # imported here, so that the module's imports stay the reference's
+    from .native import greedy_pivots_native
+
+    res = greedy_pivots_native(A.indptr, A.indices, col_selected, row_used,
+                               piv_pos_of_col, col_touch_max,
+                               max_passes=max_passes, mopup=mopup)
+    if res is not None:
+        GREEDY_RUNS["native"] += 1
+        return res
+    GREEDY_RUNS["numpy"] += 1
     n, m = A.shape
     lengths = A.row_lengths()
     col_counts = np.bincount(A.indices, minlength=m).astype(np.int64)
@@ -517,15 +539,11 @@ def _pivots_from_scan(A, fl_r, fl_c, scan, col_selected, row_used,
                                  col_selected, piv_pos_of_col,
                                  col_touch_max)
         if res is None or res[0] > 0:
-            # candidates exist (or the eligibility kernel vanished):
-            # run the batched greedy on the compressed unused-row entries
-            re_all = A.rows_expanded()
-            keep_u = ~row_used[re_all]
+            # candidates exist (or the eligibility kernel vanished): run
+            # the greedy completion, which reads the CSR itself
             g_r, g_c, g_p = greedy_pivots(
                 A, col_selected, row_used, pos, piv_pos_of_col,
-                col_touch_max, mopup=greedy_mopup,
-                entries=(re_all[keep_u],
-                         A.indices[keep_u].astype(np.int64)))
+                col_touch_max, mopup=greedy_mopup)
             rows = np.concatenate([rows, g_r])
             cols = np.concatenate([cols, g_c])
             pos = np.concatenate([pos, g_p])

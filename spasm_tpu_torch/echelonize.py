@@ -54,6 +54,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ._host import pivots
 from ._host.csr import SparseGFp
 from ._host.elimination import (compute_levels, eliminate_against_reduced,
                                 mutual_reduce, wave_eliminate)
@@ -202,7 +203,15 @@ def last_phase_stats() -> dict:
     The top-level spans (convert, pivots, estimate, schur, finish,
     assemble) leave out only the call's bookkeeping between them and the
     round checkpoints; finish.prep, .wait and .extract tile the dense
-    finish.  Keys of spans not entered in the call are 0."""
+    finish.  Keys of spans not entered in the call are 0.
+
+    Two counts of the call's structural pivot searches (the rounds' and
+    the GPLU finish's) whose greedy completion ran (``pivots.GREEDY_RUNS``):
+
+    - greedy_native: those whose completion ran in C
+      (``native.greedy_pivots_native``);
+    - greedy_numpy: those that fell back to the NumPy body, where the
+      native library could not be built or SPASM_TPU_NO_NATIVE is set."""
     return dict(_LAST_STATS)
 
 
@@ -223,6 +232,7 @@ def echelonize(A: SparseGFp, opts: EchelonizeOptions | None = None,
              "estimate_s": 0.0, "schur_s": 0.0, "finish_s": 0.0,
              "finish_prep_s": 0.0, "finish_wait_s": 0.0,
              "finish_extract_s": 0.0, "assemble_s": 0.0, "device_s": 0.0}
+    runs = dict(pivots.GREEDY_RUNS)
     with phase("echelonize", stats, key="total_s"):
         device = torch.device(device)
         if mesh is not None:
@@ -238,6 +248,8 @@ def echelonize(A: SparseGFp, opts: EchelonizeOptions | None = None,
         with push_verbose(verbose):
             fact = _echelonize_impl(A, opts, device, stats, checkpoint,
                                     resume, mesh)
+    for k in ("native", "numpy"):
+        stats["greedy_" + k] = pivots.GREEDY_RUNS[k] - runs[k]
     global _LAST_STATS
     _LAST_STATS = stats
     return fact

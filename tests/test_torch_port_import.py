@@ -131,12 +131,17 @@ PORT_CSRC = os.path.join(PKG, "_host", "csrc")
 # module -> what the port's copy may change: the module docstring, and
 # top-level assignments and functions (methods included) by name
 HOST_EDITS = {
-    "field": (), "sputil": (), "pivots": (), "elimination": (), "io": (),
+    "field": (), "sputil": (), "elimination": (), "io": (),
     "fixtures": (), "utils/logging": (), "utils/hostmem": (),
     "graphs": (),
     "csr": ("__truediv__",),          # B / LU reaches the port's LU
-    "native": ("<docstring>", "_CSRC", "_CACHE", "_build", "_load"),
+    # the greedy completion runs in C (csrc/greedy_mod.c), counted
+    "pivots": ("GREEDY_RUNS", "greedy_pivots", "_pivots_from_scan"),
+    "native": ("<docstring>", "_CSRC", "_CACHE", "_build", "_load",
+               "_configure_greedy", "greedy_pivots_native"),
 }
+# the port's own C sources in _host/csrc, beside the reference's copies
+PORT_ONLY_C = ("greedy_mod.c",)
 # the top-level copies (spasm_tpu_torch/<mod>.py against spasm_tpu/<mod>.py)
 # and what each may change; their import lines are compared after
 # IMPORT_REWRITE
@@ -170,7 +175,8 @@ IMPORT_REWRITE = [
 
 def test_host_c_sources_are_the_same_files():
     assert sorted(os.listdir(PORT_CSRC)) == sorted(
-        n for n in os.listdir(REF_CSRC) if n.endswith(".c"))
+        [n for n in os.listdir(REF_CSRC) if n.endswith(".c")]
+        + list(PORT_ONLY_C))
 
 
 @pytest.mark.parametrize("name", sorted(
@@ -183,16 +189,22 @@ def test_host_c_source_matches_reference(name):
 
 def _unmasked_lines(path, names):
     """The lines of a module's source outside the docstring and the
-    top-level assignments and functions (at any depth) in ``names``."""
+    top-level assignments and functions (at any depth) in ``names``, each
+    with the blank and comment lines that lead into it (so that a name
+    only one side has brings its own separation)."""
     import ast
 
     with open(path) as fh:
         src = fh.read()
     tree = ast.parse(src)
+    lines = src.splitlines()
     drop = set()
 
     def span(node):
-        drop.update(range(node.lineno, node.end_lineno + 1))
+        start = node.lineno
+        while start > 1 and lines[start - 2].strip()[:1] in ("", "#"):
+            start -= 1
+        drop.update(range(start, node.end_lineno + 1))
 
     if "<docstring>" in names and ast.get_docstring(tree) is not None:
         span(tree.body[0])
