@@ -69,7 +69,8 @@ __all__ = [
 
 def release_native_scratch():
     """Release the host kernels' scratch (the reference's call) and the
-    cached CUDA graphs of the fused dense finish, with the device memory
+    cached CUDA graphs of the dense finish (the fused finish's and the
+    streaming finish's steps, with its buffers), with the device memory
     their pools hold."""
     from .ops.dense import release_finish_graphs
 

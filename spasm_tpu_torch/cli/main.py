@@ -32,7 +32,6 @@ def _common_flags(p):
     p.add_argument("--dense-block-size", type=int, default=None)
     p.add_argument("--no-greedy-pivot-search", action="store_true")
     p.add_argument("--no-low-rank-mode", action="store_true")
-    p.add_argument("--low-rank-start-weight", type=float, default=None)
     p.add_argument("--max-round", type=int, default=None)
     p.add_argument("--no-fill-filter", action="store_true",
                    help="disable the Markowitz pivot fill filter")
@@ -54,8 +53,6 @@ def _ech_opts(args):
         kw["enable_greedy_pivot_search"] = False
     if args.no_low_rank_mode:
         kw["enable_tall_and_skinny"] = False
-    if args.low_rank_start_weight is not None:
-        kw["low_rank_start_weight"] = args.low_rank_start_weight
     if args.max_round is not None:
         kw["max_round"] = args.max_round
     if args.no_fill_filter:

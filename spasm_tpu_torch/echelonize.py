@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import os
 import time
 import zipfile
@@ -63,15 +64,19 @@ from ._host.pivots import find_structural_pivots
 from ._host.sputil import dense_matmul_host, mod_reduce
 from ._host.utils.logging import log, push_verbose, wtime
 from .ops import dense as dense_ops
-from .ops import sparse_device, sparse_onepass
+from .ops import modmul, sparse_device, sparse_onepass
+from .ops.matmul import modmatmul
 from .parallel import sparse_sharded
 from .utils.profiling import phase
 
 
 @dataclasses.dataclass
 class EchelonizeOptions:
-    """The reference's options struct, with the same fields and defaults
-    (``spasm_tpu.echelonize.EchelonizeOptions``)."""
+    """The reference's options struct (``spasm_tpu.echelonize
+    .EchelonizeOptions``), with the same defaults, less
+    ``low_rank_start_weight``: the port's tail check combines every
+    unprocessed row (``_randomized_tail_is_dependent``), so it has no
+    sample weight to set."""
 
     enable_greedy_pivot_search: bool = True
     enable_tall_and_skinny: bool = True
@@ -85,7 +90,6 @@ class EchelonizeOptions:
     dense_block_size: int = 1000
     low_rank_ratio: float = 0.5
     tall_and_skinny_ratio: float = 5.0
-    low_rank_start_weight: float = -1.0
     # max dense elements for the dense finish; None = auto: 35% of the
     # card's memory in int32 elements, floor 2e8 (the CPU value)
     dense_budget: "int | None" = None
@@ -182,6 +186,11 @@ def last_phase_stats() -> dict:
       density estimate, dense-switch test and fill filter (its second
       estimate included);
     - schur_s: ``schur``, each round's Schur update, without the estimate;
+    - schur_reduce_s: ``schur.reduce``, inside ``schur``: each round's
+      ``mutual_reduce`` of its pivot block;
+    - schur_eliminate_s: ``schur.eliminate``, inside ``schur``: each round's
+      ``eliminate_against_reduced`` or ``wave_eliminate`` of the remaining
+      rows (the device sparse rounds have neither child);
     - finish_s: ``finish``, the finish after the rounds (dense or GPLU),
       with its checkpoint sidecars' removal;
     - finish_prep_s: ``finish.prep``, the finish's alive columns and
@@ -191,6 +200,9 @@ def last_phase_stats() -> dict:
       fused path the uploads and ``fused_blocked_finish`` up to the return
       of the first readback; the whole streaming or host block loop
       otherwise;
+    - finish_tail_s: ``finish.tail``, inside ``finish.wait``: the block
+      loops' tail checks (``_randomized_tail_is_dependent`` on the host,
+      ``_tail_is_dependent_on`` in the streaming loop);
     - finish_extract_s: ``finish.extract``, the dense finish's pivot lists,
       U extraction (the fused path's second readback), and the host CSR,
       column remap and reduction of U;
@@ -211,7 +223,20 @@ def last_phase_stats() -> dict:
     - greedy_native: those whose completion ran in C
       (``native.greedy_pivots_native``);
     - greedy_numpy: those that fell back to the NumPy body, where the
-      native library could not be built or SPASM_TPU_NO_NATIVE is set."""
+      native library could not be built or SPASM_TPU_NO_NATIVE is set.
+
+    Counts of the rounds and the dense finish (0 where none ran):
+
+    - rounds: the Schur updates the call ran (the round loop's rounds that
+      did not stop before their update);
+    - finish_rows: the rows handed to the dense finish;
+    - finish_streamed: 1 where the dense finish took the streaming device
+      loop (``_blocked_device_loop`` without the fused finish);
+    - finish_blocks: the row blocks that loop eliminated
+      (``dense_ops.blocked_finish_step`` calls);
+    - finish_rows_skipped: the rows that a tail check of either block loop
+      certified as lying in the row space found so far, which no block
+      then eliminated."""
     return dict(_LAST_STATS)
 
 
@@ -229,9 +254,13 @@ def echelonize(A: SparseGFp, opts: EchelonizeOptions | None = None,
     the same A, and ``device`` names the mesh's device type (each rank
     computes on its own device of that type)."""
     stats = {"total_s": 0.0, "convert_s": 0.0, "pivot_s": 0.0,
-             "estimate_s": 0.0, "schur_s": 0.0, "finish_s": 0.0,
+             "estimate_s": 0.0, "schur_s": 0.0, "schur_reduce_s": 0.0,
+             "schur_eliminate_s": 0.0, "finish_s": 0.0,
              "finish_prep_s": 0.0, "finish_wait_s": 0.0,
-             "finish_extract_s": 0.0, "assemble_s": 0.0, "device_s": 0.0}
+             "finish_tail_s": 0.0, "finish_extract_s": 0.0,
+             "assemble_s": 0.0, "device_s": 0.0, "rounds": 0,
+             "finish_rows": 0, "finish_streamed": 0, "finish_blocks": 0,
+             "finish_rows_skipped": 0}
     runs = dict(pivots.GREEDY_RUNS)
     with phase("echelonize", stats, key="total_s"):
         device = torch.device(device)
@@ -423,7 +452,8 @@ def _echelonize_impl(A: SparseGFp, opts: EchelonizeOptions,
                 # every row's coefficients against the REDUCED block are its
                 # values at the pivot columns (see the reference for the
                 # lp_order argument)
-                Ustar, ok = mutual_reduce(f, Upart, pcols, levels_blk)
+                with phase("schur.reduce", stats):
+                    Ustar, ok = mutual_reduce(f, Upart, pcols, levels_blk)
                 if ok:
                     if opts.L:
                         cmap = np.full(S.shape[1], -1, np.int64)
@@ -435,21 +465,23 @@ def _echelonize_impl(A: SparseGFp, opts: EchelonizeOptions,
                                  f.normalize(Uc.data[pm].astype(np.int64)
                                              * piv_vals[Uc.row[pm]]))
                         reduced_L = True
-                    if S_rest is not None:
-                        S_new, C = eliminate_against_reduced(
-                            f, Ustar, pcols, S_rest, record_coeffs=opts.L,
-                            assume_canonical=True)
-                    else:
-                        S_new, C = eliminate_against_reduced(
-                            f, Ustar, pcols, S, record_coeffs=False,
-                            assume_canonical=True, rows=rest_rows)
+                    with phase("schur.eliminate", stats):
+                        if S_rest is not None:
+                            S_new, C = eliminate_against_reduced(
+                                f, Ustar, pcols, S_rest,
+                                record_coeffs=opts.L, assume_canonical=True)
+                        else:
+                            S_new, C = eliminate_against_reduced(
+                                f, Ustar, pcols, S, record_coeffs=False,
+                                assume_canonical=True, rows=rest_rows)
                     Upart = Ustar
                 else:  # fill blow-up guard: wave cascade
                     if S_rest is None:
                         S_rest = _gather_rest(S, rest_rows)
-                    S_new, C = wave_eliminate(f, Upart, pcols, levels_blk,
-                                              S_rest, record_coeffs=opts.L,
-                                              assume_canonical=True)
+                    with phase("schur.eliminate", stats):
+                        S_new, C = wave_eliminate(
+                            f, Upart, pcols, levels_blk, S_rest,
+                            record_coeffs=opts.L, assume_canonical=True)
             dens = S_new.nnz / max(1, S_new.shape[0] * S_new.shape[1])
             log(f"Schur complement: {S_new.shape[0]} * {S_new.shape[1]} "
                 f"[{S_new.nnz} nz / density= {dens:.3f}], "
@@ -473,6 +505,7 @@ def _echelonize_impl(A: SparseGFp, opts: EchelonizeOptions,
         S = S_new
         row_origin = row_origin[rest_rows]
         round_idx += 1
+        stats["rounds"] += 1
         if checkpoint and writer:
             _save_checkpoint(checkpoint, f, opts, round_idx, r, S,
                              row_origin, m, U_blocks, piv_cols_all,
@@ -853,6 +886,7 @@ def _dense_finish_blocked(f: Field, S, row_origin, alive_cols, r0, opts,
     and is ignored otherwise."""
     with phase("finish.prep", stats):
         n_s = S.shape[0]
+        stats["finish_rows"] += n_s
         na = alive_cols.size
         bs = min(n_s, max(128, opts.dense_block_size))
         colmap = np.full(S.shape[1], -1, np.int64)
@@ -861,9 +895,10 @@ def _dense_finish_blocked(f: Field, S, row_origin, alive_cols, r0, opts,
         rows_all = Sc.row
         cols_all = colmap[Sc.col]
         vals_all = f.normalize(Sc.data)
-        order = np.argsort(rows_all, kind="stable")
-        rows_all, cols_all, vals_all = (rows_all[order], cols_all[order],
-                                        vals_all[order])
+        if not np.all(rows_all[1:] >= rows_all[:-1]):  # CSR's are sorted
+            order = np.argsort(rows_all, kind="stable")
+            rows_all, cols_all, vals_all = (rows_all[order], cols_all[order],
+                                            vals_all[order])
 
         # a sidecar of another matrix, round or tail is ignored, not resumed
         ckpt_meta = dict(field_p=f.p, r0=r0, s_nnz=int(S.nnz), n_s=n_s, na=na)
@@ -892,7 +927,8 @@ def _dense_finish_blocked(f: Field, S, row_origin, alive_cols, r0, opts,
     else:
         with phase("finish.wait", stats):
             result = _blocked_host_loop(f, n_s, na, bs, rows_all, cols_all,
-                                        vals_all, opts, **loop_kw)
+                                        vals_all, opts, stats=stats,
+                                        **loop_kw)
     if result is None:
         return None
     with phase("finish.extract", stats):
@@ -932,7 +968,13 @@ def _save_dense_ckpt(ckpt_path, ckpt_meta, b0, Uh, piv_cols_loc,
 
 
 def _blocked_host_loop(f, n_s, na, bs, rows_all, cols_all, vals_all, opts,
-                       ckpt_path=None, resume_state=None, ckpt_meta=None):
+                       ckpt_path=None, resume_state=None, ckpt_meta=None,
+                       stats=None):
+    """The dense finish's block loop on the host (NumPy int64), for
+    finishes under the device cutoff.  ``stats`` takes the span
+    ``finish.tail`` and the count ``finish_rows_skipped``."""
+    stats = {} if stats is None else stats
+    stats.setdefault("finish_rows_skipped", 0)
     Uh = np.zeros((0, na), np.int64)
     piv_cols_loc: list[int] = []
     piv_rows_glob: list[int] = []
@@ -975,11 +1017,14 @@ def _blocked_host_loop(f, n_s, na, bs, rows_all, cols_all, vals_all, opts,
             last_save = wtime()
         if (_low_rank_mode(opts, len(piv_cols_loc), b0, n_s)
                 and dry_blocks >= 1 and not opts.L and piv_cols_loc):
-            if _randomized_tail_is_dependent(
+            with phase("finish.tail", stats):
+                dependent = _randomized_tail_is_dependent(
                     f, rows_all, cols_all, vals_all, b0, n_s, na, Uh,
-                    np.array(piv_cols_loc, np.int64), opts):
+                    np.array(piv_cols_loc, np.int64))
+            if dependent:
                 log(f"[echelonize/dense] randomized check: remaining "
                     f"{n_s - b0} rows dependent; skipping")
+                stats["finish_rows_skipped"] += n_s - b0
                 break
     if not piv_cols_loc:
         return None
@@ -1005,16 +1050,20 @@ def _blocked_device_loop(f, n_s, na, bs, rows_all, cols_all, vals_all,
     mode, no resume, n_pad * na_b within FUSED_BUDGET), with or without a
     checkpoint, this is ``_fused_device_finish``: blocks of
     ``_bucket(bs)`` rows, no host read inside the loop.  Otherwise it is the
-    streaming loop: one ``dense_ops.blocked_finish_step`` per row block of
-    ``bs`` rows against the accumulated mutual RREF ``Ud``, which is
-    allocated once at the rank bound min(n_s, na) and updated in place.
-    Each block's rank is read back, so the loop stops once every column
-    holds a pivot, and in low-rank mode a dry block triggers the randomized
-    tail check.  A sidecar save pulls ``Ud[:r_d]`` to the host; a resume
-    puts it back.  The fused finish writes no sidecar, as the reference's:
+    streaming loop: the COO uploaded once, then one
+    ``dense_ops.blocked_finish_step`` per row block of ``bs`` rows against
+    the accumulated mutual RREF ``Ud`` (``dense_ops.stream_buffers``: the
+    rank bound min(n_s, na) plus a block of rows), updated in place; on a
+    card each step replays a CUDA graph.  Each block's rank is read back,
+    so the loop stops once every column holds a pivot, and in low-rank mode
+    a dry block triggers the randomized tail check, on the device
+    (``_tail_is_dependent_on``).  A sidecar save pulls ``Ud[:r_d]`` to the
+    host; a resume puts it back.  The fused finish writes no sidecar, as the reference's:
     a resume from a checkpoint it left finds none and runs it again.
     ``stats`` takes the spans ``finish.wait`` (the loop, up to the first
-    readback on the fused path) and ``finish.extract``."""
+    readback on the fused path), its child ``finish.tail`` (the tail
+    checks) and ``finish.extract``, and the streaming loop's counts
+    ``finish_streamed``, ``finish_blocks`` and ``finish_rows_skipped``."""
     stats = {} if stats is None else stats
     bs_b = dense_ops._bucket(bs)
     na_b = dense_ops._bucket(na)
@@ -1025,10 +1074,19 @@ def _blocked_device_loop(f, n_s, na, bs, rows_all, cols_all, vals_all,
             and n_pad * na_b <= dense_ops.FUSED_BUDGET):
         return _fused_device_finish(f, n_s, na, na_b, bs_b, rows_all,
                                     cols_all, vals_all, device, stats=stats)
+    stats["finish_streamed"] = 1
+    stats.setdefault("finish_blocks", 0)
+    stats.setdefault("finish_rows_skipped", 0)
     with phase("finish.wait", stats):
-        cap = min(n_s, na)
-        Ud = torch.zeros((cap, na), dtype=torch.int32, device=device)
-        pc_map = torch.zeros(cap, dtype=torch.int64, device=device)
+        # the COO goes up once; each block and tail check takes a slice
+        coo = [dense_ops.upload(x, dt, device) for x, dt in (
+            (rows_all, np.int64), (cols_all, np.int64), (vals_all, np.int32))]
+        # each row's first entry: searched once, with keys of the COO's own
+        # dtype (other keys make NumPy cast the whole array every search)
+        starts = np.searchsorted(rows_all,
+                                 np.arange(n_s + 1, dtype=rows_all.dtype))
+        # bs rows beyond the rank bound min(n_s, na), for the card's steps
+        Ud, pc_map = dense_ops.stream_buffers(min(n_s, na) + bs, na, device)
         r_d = 0
         piv_cols_loc: list[int] = []
         piv_rows_glob: list[int] = []
@@ -1048,10 +1106,12 @@ def _blocked_device_loop(f, n_s, na, bs, rows_all, cols_all, vals_all,
         last_save = wtime()
         while b0 < n_s and r_d < na:
             b1 = min(n_s, b0 + bs)
-            ri, ci, vi = _block_slice(rows_all, cols_all, vals_all, b0, b1)
+            lo, hi = starts[b0], starts[b1]
             r_d, new_rank, prow_of, pcol_of = dense_ops.blocked_finish_step(
-                f, (b1 - b0, na), dense_ops.DEFAULT_PANEL, ri, ci, vi, Ud,
+                f, (b1 - b0, na), dense_ops.DEFAULT_PANEL,
+                coo[0][lo:hi] - b0, coo[1][lo:hi], coo[2][lo:hi], Ud,
                 pc_map, r_d)
+            stats["finish_blocks"] += 1
             if new_rank:
                 piv_cols_loc.extend(pcol_of[:new_rank].tolist())
                 piv_rows_glob.extend((b0 + prow_of[:new_rank]).tolist())
@@ -1067,12 +1127,14 @@ def _blocked_device_loop(f, n_s, na, bs, rows_all, cols_all, vals_all,
                 last_save = wtime()
             if (low_rank_possible and dry_blocks >= 1 and piv_cols_loc
                     and _low_rank_mode(opts, len(piv_cols_loc), b0, n_s)):
-                Uh = Ud[:r_d].cpu().numpy().astype(np.int64)
-                if _randomized_tail_is_dependent(
-                        f, rows_all, cols_all, vals_all, b0, n_s, na, Uh,
-                        np.array(piv_cols_loc, np.int64), opts):
+                with phase("finish.tail", stats):
+                    dependent = _tail_is_dependent_on(
+                        f, *(x[starts[b0]:] for x in coo), b0, n_s, na,
+                        Ud[:r_d], pc_map[:r_d])
+                if dependent:
                     log(f"[echelonize/dense] randomized check: remaining "
                         f"{n_s - b0} rows dependent; skipping")
+                    stats["finish_rows_skipped"] += n_s - b0
                     break
     if r_d == 0:
         return None
@@ -1120,35 +1182,100 @@ def _fused_device_finish(f, n_s, na, na_b, bs, rows_all, cols_all,
                 np.array(piv_rows_glob, np.int64))
 
 
+def _tail_samples(p: int) -> int:
+    """The tail check's samples at prime p: each misses a tail outside the
+    row space with probability at most 1/p, so p**-samples <= 2**-64 (5 at
+    p = 42013, 3 from p = 2**31 on)."""
+    return math.ceil(64 / math.log2(p))
+
+
+def _combine_rows(f: Field, C: np.ndarray, T: sp.csr_matrix) -> np.ndarray:
+    """C @ T mod p, balanced, for C (s, k) dense and T (k, na) CSR, both
+    balanced: one sparse product where k terms of (p/2)**2 stay below
+    2**62, otherwise 16-bit limbs of C over chunks of 2**15 rows of T
+    (2**15 terms of 2**16 * 2**31)."""
+    half = max(1, f.halfp)
+    k = T.shape[0]
+    if half * half * max(1, k) < 1 << 62:
+        return f.normalize(np.asarray(T.T @ C.T).T)
+    Cu = f.to_unsigned(C)
+    acc = np.zeros((C.shape[0], T.shape[1]), np.int64)
+    step = 1 << 15
+    for r0 in range(0, k, step):
+        Tc = T[r0:r0 + step].T
+        Cc = Cu[:, r0:r0 + step]
+        hi = f.normalize(np.asarray(Tc @ (Cc >> 16).T).T)
+        lo = f.normalize(np.asarray(Tc @ (Cc & 0xFFFF).T).T)
+        acc = f.normalize(acc + hi * 65536 + lo)
+    return acc
+
+
 def _randomized_tail_is_dependent(f, rows_all, cols_all, vals_all, b0, n_s,
-                                  na, Uh, piv_cols_loc, opts,
-                                  samples: int = 8):
-    """spasm_schur_dense_randomized-style check: N random weight-w
-    combinations of the unprocessed rows (numpy, fixed seed, as the
-    reference); dependent (whp) iff all reduce to zero against the dense
-    RREF."""
+                                  na, U, piv_cols):
+    """Whether the finish's unprocessed rows b0..n_s-1 (numpy COO sorted
+    by row) lie in the row space of the dense mutual RREF ``U`` with pivot
+    columns ``piv_cols``: numpy arrays (the host block loop), or tensors,
+    where the tail goes to U's device and ``_tail_is_dependent_on`` checks
+    it.  Each of ``_tail_samples(p)`` samples combines every tail row with
+    its own uniform coefficient (fixed seed), all in one sparse product.
+    A dependent tail reduces to zero in every sample; a tail outside the
+    row space makes a sample's coefficients a nonzero linear form, zero
+    with probability at most 1/p, so a wrong True has probability at most
+    2**-64.  (The reference's samples combine 16 rows each: where few tail
+    rows lie outside the row space, every sample can miss them.)"""
+    lo = np.searchsorted(rows_all, b0)
+    if isinstance(U, torch.Tensor):
+        return _tail_is_dependent_on(
+            f, *(torch.from_numpy(np.ascontiguousarray(x[lo:], dt)).to(
+                U.device) for x, dt in ((rows_all, np.int64),
+                                        (cols_all, np.int64),
+                                        (vals_all, np.int32))),
+            b0, n_s, na, U, piv_cols)
     rng = np.random.default_rng(12345)
-    w = int(opts.low_rank_start_weight)
-    if w <= 0:
-        w = 16
-    tail_rows = np.arange(b0, n_s)
-    w = min(w, tail_rows.size)
-    X = np.zeros((samples, na), np.int64)
-    mask_tail = (rows_all >= b0)
-    rt, ct, vt = (rows_all[mask_tail], cols_all[mask_tail],
-                  vals_all[mask_tail])
-    order = np.argsort(rt, kind="stable")
-    rt, ct, vt = rt[order], ct[order], vt[order]
-    starts = np.searchsorted(rt, tail_rows)
-    ends = np.searchsorted(rt, tail_rows + 1)
-    for s in range(samples):
-        picks = rng.choice(tail_rows.size, size=w, replace=False)
-        for t in picks:
-            coef = int(f.rand(1, rng)[0]) or 1
-            sl = slice(starts[t], ends[t])
-            X[s, ct[sl]] = f.normalize(X[s, ct[sl]] + coef * vt[sl])
-    X = f.normalize(X)
-    res = f.normalize(X - dense_matmul_host(f, X[:, piv_cols_loc], Uh))
+    indptr = np.searchsorted(rows_all, np.arange(b0, n_s + 1)) - lo
+    T = sp.csr_matrix((vals_all[lo:], cols_all[lo:], indptr),
+                      shape=(n_s - b0, na))
+    X = _combine_rows(f, f.rand((_tail_samples(f.p), n_s - b0), rng), T)
+    res = f.normalize(X - dense_matmul_host(f, X[:, piv_cols], U))
+    return not bool(res.any())
+
+
+# tail entries a sample product gathers at a time (int64 temporaries of
+# samples x TAIL_CHUNK)
+TAIL_CHUNK = 1 << 22
+
+
+def _combine_rows_on(f: Field, C: torch.Tensor, rows, cols, vals,
+                     na: int) -> torch.Tensor:
+    """``_combine_rows`` on C's device: C @ T mod p, balanced int32, for C
+    (s, k) balanced int64 and T (k, na) as COO (rows, cols int64, vals
+    balanced int32).  One gather, product and scatter-add per TAIL_CHUNK
+    entries, exact in int64: each term is at most (p/2)**2 < 2**62 and is
+    reduced mod p before it is summed, and the sums after each chunk."""
+    X = torch.zeros((C.shape[0], na), dtype=torch.int64, device=C.device)
+    for i in range(0, rows.numel(), TAIL_CHUNK):
+        j = i + TAIL_CHUNK
+        terms = C[:, rows[i:j]] * vals[i:j].to(torch.int64)
+        X.index_add_(1, cols[i:j], torch.remainder(terms, f.p))
+        X.remainder_(f.p)
+    return modmul.normalize(f, X)
+
+
+def _tail_is_dependent_on(f, rows, cols, vals, b0, n_s, na, U, piv_cols):
+    """``_randomized_tail_is_dependent`` on U's device: rows, cols, vals
+    the COO of rows b0..n_s-1 (int64, int64, balanced int32 tensors there),
+    U and piv_cols tensors.  The coefficients are drawn there from a fixed
+    seed; the samples (``_combine_rows_on``) are reduced against U by one
+    ``modmatmul``, and one value is read."""
+    dev = U.device
+    p = f.p
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12345)
+    C = torch.randint(0, p, (_tail_samples(p), n_s - b0), generator=gen,
+                      device=dev, dtype=torch.int64)
+    C = torch.where(C > p // 2, C - p, C)
+    X = _combine_rows_on(f, C, rows - b0, cols, vals, na)
+    res = modmul.sub(f, X, modmatmul(f, X[:, piv_cols], U))
     return not bool(res.any())
 
 

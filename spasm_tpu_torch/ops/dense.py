@@ -406,34 +406,109 @@ SUB_CHUNK = 1 << 27
 def blocked_finish_step(f, shape, panel: int, rows, cols, vals,
                         Ud: torch.Tensor, pc_map: torch.Tensor, r_d: int):
     """One step of the blocked dense finish: densify the block's COO slice,
-    eliminate it against the accumulated mutual-RREF panel Ud[:r_d] (one
-    K1 matmul), Jordan-RREF it, back-eliminate Ud[:r_d] against the new
-    pivots and append them.
+    then ``_block_body``: eliminate it against the accumulated mutual-RREF
+    panel Ud[:r_d] (one K1 matmul), Jordan-RREF it, back-eliminate Ud[:r_d]
+    against the new pivots and append them.
 
     shape = (rows of this block, na).  Ud (cap, na) and pc_map (cap,)
     int64 are updated in place (the reference donates them); cap must hold
-    r_d plus the block's new rank, and min(rows, cols) of the whole finish
-    always does.  Returns (r_d', new_rank, prow_of, pcol_of)."""
+    r_d plus the block's rows: the finish's rank bound min(rows, cols) plus
+    a block always does (``stream_buffers``).  Returns (r_d', new_rank,
+    prow_of, pcol_of).
+
+    On a card, with the buffers of ``stream_buffers``, the step is replayed
+    as a CUDA graph (``_step_on_card``): one read a step, the block's rank
+    and pivots."""
+    if Ud.is_cuda and _stream.get("Ud") is Ud:
+        with torch.cuda.device(Ud.device):
+            return _step_on_card(f, shape, panel, rows, cols, vals, Ud,
+                                 pc_map, r_d)
     X = densify_coo(shape, rows, cols, vals, Ud.device)
-    if r_d:
-        coeff = X[:, pc_map[:r_d]]
-        X = modmul.sub(f, X, modmatmul(f, coeff, Ud[:r_d]))
-    R, new_rank, prow_of, pcol_of, _ = rref_inplace(f, X, shape[1], panel)
+    rd = torch.full((), r_d, dtype=torch.int64, device=Ud.device)
+    new_rank, prow_of, pcol_of, _ = _block_body(f, X, Ud, pc_map, rd, r_d,
+                                                shape[1], panel)
     new_rank = int(new_rank)   # the streaming loop reads each block's rank
-    if new_rank:
-        newU = R[prow_of[:new_rank]]
-        npc = pcol_of[:new_rank]
-        if r_d:
-            co = Ud[:r_d][:, npc]
-            # the subtraction's int64 temporaries are 8x Ud's int32 rows:
-            # bound them by updating SUB_CHUNK elements of Ud at a time
-            step = max(1, SUB_CHUNK // max(1, Ud.shape[1]))
-            for i in range(0, r_d, step):
-                j = min(r_d, i + step)
-                Ud[i:j] = modmul.sub(f, Ud[i:j], modmatmul(f, co[i:j], newU))
-        Ud[r_d:r_d + new_rank] = newU
-        pc_map[r_d:r_d + new_rank] = npc
     return r_d + new_rank, new_rank, prow_of, pcol_of
+
+
+# The streaming finish's state on a card: its accumulated panel Ud and
+# pc_map, kept from call to call of one (device, rows, na), and the CUDA
+# graphs of its steps, which read and write them in place.  A step's graph
+# is keyed by (p, block shape, panel, panel group, K), K the bucketed rank
+# so far (``_bucket``); it is captured on a key's second step, the first
+# running ``_block_body`` eagerly (the warm-up the capture asks for), and
+# replayed after.  The graphs share one memory pool: a step's transients
+# live only through its replay.  ``release_finish_graphs`` frees it all.
+_stream: dict = {}
+
+
+def stream_buffers(rows: int, na: int, device):
+    """Zeroed (Ud (rows, na) int32, pc_map (rows,) int64) for the streaming
+    finish.  On a card, the same tensors as the last call of this shape
+    (another shape drops them and the step graphs), so that the block
+    steps replay the graphs captured on them."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return (torch.zeros((rows, na), dtype=torch.int32, device=device),
+                torch.zeros(rows, dtype=torch.int64, device=device))
+    key = (device.index, rows, na)
+    if _stream.get("key") != key:
+        _stream.clear()
+        _stream.update(
+            key=key, graphs={}, seen=set(),
+            Ud=torch.zeros((rows, na), dtype=torch.int32, device=device),
+            pc_map=torch.zeros(rows, dtype=torch.int64, device=device))
+    else:
+        _stream["Ud"].zero_()
+        _stream["pc_map"].zero_()
+    return _stream["Ud"], _stream["pc_map"]
+
+
+def _step_on_card(f, shape, panel, rows, cols, vals, Ud, pc_map, r_d):
+    dev = Ud.device
+    K = min(_bucket(r_d), Ud.shape[0]) if r_d else 0
+    key = (f.p, *shape, panel, _FORCE_GROUP or PANEL_GROUP, K)
+    entry = _stream["graphs"].get(key)
+    if entry is None:
+        X = torch.empty(shape, dtype=torch.int32, device=dev)
+        rd = torch.full((), r_d, dtype=torch.int64, device=dev)
+        _densify_into(X, *(torch.as_tensor(x).to(dev)
+                           for x in (rows, cols, vals)))
+        if key not in _stream["seen"]:
+            _stream["seen"].add(key)
+            new_rank, prow_of, pcol_of, _ = _block_body(
+                f, X, Ud, pc_map, rd, K, shape[1], panel)
+            meta = torch.cat([new_rank.view(1).long(), prow_of, pcol_of])
+        else:
+            if "pool" not in _stream:
+                _stream["pool"] = torch.cuda.graph_pool_handle()
+            cur = torch.cuda.current_stream(dev)
+            graph = torch.cuda.CUDAGraph()
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                graph.capture_begin(pool=_stream["pool"])
+                try:
+                    new_rank, prow_of, pcol_of, _ = _block_body(
+                        f, X, Ud, pc_map, rd, K, shape[1], panel)
+                    meta = torch.cat([new_rank.view(1).long(), prow_of,
+                                      pcol_of])
+                finally:
+                    graph.capture_end()
+            cur.wait_stream(side)
+            _stream["graphs"][key] = dict(graph=graph, X=X, rd=rd,
+                                          meta=meta)
+            graph.replay()
+    else:
+        _densify_into(entry["X"], *(torch.as_tensor(x).to(dev)
+                                    for x in (rows, cols, vals)))
+        entry["rd"].fill_(r_d)
+        entry["graph"].replay()
+        meta = entry["meta"]
+    meta = meta.cpu()
+    n = shape[0]
+    new_rank = int(meta[0])
+    return r_d + new_rank, new_rank, meta[1:1 + n], meta[1 + n:]
 
 
 # element-count cap for the fused finish: the densified matrix (n_pad x na)
@@ -470,6 +545,49 @@ def _densify_into(X: torch.Tensor, rows, cols, vals) -> None:
                           vals.to(torch.int32))
 
 
+def _block_body(f, Xb: torch.Tensor, Ud: torch.Tensor, pc_map: torch.Tensor,
+                r_d: torch.Tensor, K: int, npiv: int, panel: int):
+    """One row block of the blocked finish on the device, with no host
+    read, under the device predicate ``r_d < npiv``: eliminate Xb (bs, na)
+    against Ud[:K], Jordan-RREF it, back-eliminate Ud[:K] against its new
+    pivots and append them at r_d (a 0-d int64 tensor, not advanced here).
+    The rows of Ud from r_d on are zero, so any static K >= r_d gives the
+    same bits; Ud and pc_map need r_d + bs rows.  Returns (new_rank,
+    prow_of, pcol_of, live): prow_of / pcol_of padded with -1 to bs slots,
+    live the predicate."""
+    bs, na = Xb.shape
+    nmax = min(bs, npiv)
+    slot = torch.arange(bs, device=Xb.device)
+    live_blk = r_d < npiv
+    if K:
+        # empty pc_map slots gather column 0 against zero Ud rows
+        coeff = Xb.index_select(1, pc_map[:K])
+        Xb = Xb.clone()
+        modmatmul(f, modmul.neg(f, coeff), Ud[:K], out=Xb, run=live_blk)
+    R, new_rank, prow_of, pcol_of, _ = rref_inplace(f, Xb, npiv, panel,
+                                                    alive=live_blk)
+    if nmax < bs:
+        prow_of = torch.nn.functional.pad(prow_of, (0, bs - nmax), value=-1)
+        pcol_of = torch.nn.functional.pad(pcol_of, (0, bs - nmax), value=-1)
+    live = slot < new_rank
+    gather = torch.where(live, prow_of.clamp(0, bs - 1), 0)
+    newU = torch.where(live[:, None], R.index_select(0, gather), 0)
+    npc = torch.where(live, pcol_of.clamp(0, na - 1), 0)
+    if K:
+        # back-eliminate the live rows of Ud, SUB_CHUNK elements a call
+        nco = modmul.neg(f, torch.where(live[None, :],
+                                        Ud[:K].index_select(1, npc), 0))
+        step = max(1, SUB_CHUNK // na)
+        for i in range(0, K, step):
+            j = min(K, i + step)
+            modmatmul(f, nco[i:j], newU, out=Ud[i:j], run=new_rank > 0)
+    # append at r_d (rows past new_rank of newU and of Ud are zero)
+    at = r_d + slot
+    Ud.index_copy_(0, at, newU)
+    pc_map.index_copy_(0, at, npc)
+    return new_rank, prow_of, pcol_of, live_blk
+
+
 def _fused_body(f, X: torch.Tensor, npiv: int, bs: int, panel: int):
     """The block loop of ``fused_blocked_finish`` on the dense (n_pad, na)
     X, with no host read: every block runs, under the device predicate
@@ -478,7 +596,6 @@ def _fused_body(f, X: torch.Tensor, npiv: int, bs: int, panel: int):
     n_pad, na = X.shape
     dev = X.device
     nblocks = n_pad // bs
-    nmax = min(bs, npiv)
     cap = _bucket(min(n_pad, npiv)) + bs
     Ud = torch.zeros((cap, na), dtype=torch.int32, device=dev)
     pc_map = torch.zeros(cap, dtype=torch.int64, device=dev)
@@ -486,42 +603,13 @@ def _fused_body(f, X: torch.Tensor, npiv: int, bs: int, panel: int):
     ranks = torch.zeros(nblocks, dtype=torch.int64, device=dev)
     prows = torch.zeros((nblocks, bs), dtype=torch.int64, device=dev)
     pcols = torch.zeros((nblocks, bs), dtype=torch.int64, device=dev)
-    slot = torch.arange(bs, device=dev)
-    step = max(1, SUB_CHUNK // na)
     for b in range(nblocks):
         # r_d <= b * bs, and the rows of Ud from r_d on are zero: the host
         # knows a static K for both products of this block (the reference
         # loops over KC-row chunks up to r_d on the device instead)
-        K = min(b * bs, cap)
-        live_blk = r_d < npiv
-        Xb = X[b * bs:(b + 1) * bs]
-        if K:
-            # empty pc_map slots gather column 0 against zero Ud rows
-            coeff = Xb.index_select(1, pc_map[:K])
-            Xb = Xb.clone()
-            modmatmul(f, modmul.neg(f, coeff), Ud[:K], out=Xb, run=live_blk)
-        R, new_rank, prow_of, pcol_of, _ = rref_inplace(f, Xb, npiv, panel,
-                                                        alive=live_blk)
-        if nmax < bs:
-            prow_of = torch.nn.functional.pad(prow_of, (0, bs - nmax),
-                                              value=-1)
-            pcol_of = torch.nn.functional.pad(pcol_of, (0, bs - nmax),
-                                              value=-1)
-        live = slot < new_rank
-        gather = torch.where(live, prow_of.clamp(0, bs - 1), 0)
-        newU = torch.where(live[:, None], R.index_select(0, gather), 0)
-        npc = torch.where(live, pcol_of.clamp(0, na - 1), 0)
-        if K:
-            # back-eliminate the live rows of Ud, SUB_CHUNK elements a call
-            nco = modmul.neg(f, torch.where(live[None, :],
-                                            Ud[:K].index_select(1, npc), 0))
-            for i in range(0, K, step):
-                j = min(K, i + step)
-                modmatmul(f, nco[i:j], newU, out=Ud[i:j], run=new_rank > 0)
-        # append at r_d (rows past new_rank of newU and of Ud are zero)
-        at = r_d + slot
-        Ud.index_copy_(0, at, newU)
-        pc_map.index_copy_(0, at, npc)
+        new_rank, prow_of, pcol_of, live_blk = _block_body(
+            f, X[b * bs:(b + 1) * bs], Ud, pc_map, r_d, min(b * bs, cap),
+            npiv, panel)
         ranks[b] = new_rank
         # a block the loop does not reach keeps the reference's zeros
         prows[b] = torch.where(live_blk, prow_of, 0)
@@ -546,10 +634,12 @@ last_finish: dict = {}
 
 
 def release_finish_graphs() -> None:
-    """Free the cached CUDA graphs of the fused finish, and forget the
-    shapes met once."""
+    """Free the cached CUDA graphs of the fused finish and of the
+    streaming finish's steps (with its buffers), and forget the shapes
+    met once."""
     _graphs.clear()
     _seen.clear()
+    _stream.clear()
     if torch.cuda.is_initialized():
         torch.cuda.empty_cache()
 

@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from spasm_tpu_torch import SparseGFp, echelonize, field
-from spasm_tpu_torch._host.fixtures import simplex_boundary
+from spasm_tpu_torch import SparseGFp, echelonize, field, last_phase_stats
+from spasm_tpu_torch._host.fixtures import (simplex_boundary,
+                                            subcomplex_boundary)
 from spasm_tpu_torch.interop import lu_arrays
 from spasm_tpu_torch.ops import (cuda_matmul, cuda_merge, cuda_panel, dense,
                                  matmul, merge, sparse_onepass)
@@ -640,3 +641,52 @@ def test_echelonize_fused_equals_streaming_on_the_card(card, monkeypatch):
     for k in cpu:
         for other in (*fused, streaming):
             assert np.array_equal(other[k], cpu[k]), k
+
+
+def test_streaming_steps_replay_equal_eager_and_cpu(card, monkeypatch):
+    # the streaming loop (FUSED_BUDGET = 0) on the card: a step's first
+    # sight of its key (block shape, bucketed rank K) runs eagerly, the
+    # second captures a CUDA graph, later ones replay it.  Three calls equal
+    # the CPU's LU, and the third, all replays, launches no K1 or K2 of its
+    # own
+    monkeypatch.setattr(dense, "HOST_CUTOFF", 1)
+    monkeypatch.setattr(dense, "FUSED_BUDGET", 0)
+    A = SparseGFp.rand(field(42013), 900, 700, 0.05,
+                       np.random.default_rng(21))
+    kw = dict(dense_block_size=128, device_sparsity_threshold=None)
+    cpu = lu_arrays(echelonize(A, device="cpu", **kw))
+    dense.release_finish_graphs()
+    try:
+        for call in range(3):
+            before = cuda_panel.launches, cuda_matmul.launches
+            got = lu_arrays(echelonize(A, device=card, **kw))
+            after = cuda_panel.launches, cuda_matmul.launches
+            for k in cpu:
+                assert np.array_equal(got[k], cpu[k]), (call, k)
+        assert dense._stream["graphs"]
+        assert after == before
+    finally:
+        dense.release_finish_graphs()
+
+
+def test_low_rank_streaming_on_the_card_equals_cpu(card, monkeypatch):
+    # a boundary whose streaming finish skips its tail: the card's tail
+    # check (samples formed and reduced on the card) skips the same rows as
+    # the CPU's, and the LU is the CPU's, on every call
+    monkeypatch.setattr(dense, "HOST_CUTOFF", 1)
+    A = subcomplex_boundary(18, 6, 0.9, seed=0)
+    kw = dict(dense_block_size=256)
+    cpu = lu_arrays(echelonize(A, device="cpu", **kw))
+    want = last_phase_stats()
+    assert want["finish_streamed"] == 1 and want["finish_rows_skipped"] > 0
+    dense.release_finish_graphs()
+    try:
+        for call in range(3):
+            got = lu_arrays(echelonize(A, device=card, **kw))
+            st = last_phase_stats()
+            for k in cpu:
+                assert np.array_equal(got[k], cpu[k]), (call, k)
+            for k in ("finish_blocks", "finish_rows_skipped"):
+                assert st[k] == want[k], (call, k)
+    finally:
+        dense.release_finish_graphs()

@@ -89,7 +89,7 @@ def test_block_steps_match_blocked_finish_step(rng):
     X[rng.random(X.shape) > 0.3] = 0
     X[150:] = f.normalize(X[:50] * 3)          # dependent tail
     r_all, c_all, v_all = _coo(X)
-    cap = min(n, m)
+    cap = min(n, m) + bs      # the rank bound plus a block
     Ud = torch.zeros((cap, m), dtype=torch.int32)
     pc_map = torch.zeros(cap, dtype=torch.int64)
     r_d = 0
