@@ -2412,6 +2412,7 @@ def lu_mismatch(got: dict, want: dict) -> list:
 def resume_case(ctx, case: str, ready, expected_rank: int) -> None:
     from spasm_tpu_torch import echelonize, last_phase_stats
     from spasm_tpu_torch.interop import lu_arrays
+    from spasm_tpu_torch.ops import dense
 
     A = make_case(case)
     ctx.setdefault("cases", {})[case] = A
@@ -2427,7 +2428,11 @@ def resume_case(ctx, case: str, ready, expected_rank: int) -> None:
     sidecar = path + ".dense"
     sidecar_bytes = (os.path.getsize(sidecar) if os.path.exists(sidecar)
                      else None)
-    # the resumed path's launches: counts set to 0 right before
+    # the resumed path's launches: counts set to 0 right before.  The
+    # streaming steps the uninterrupted run took would be captured and
+    # replayed, which the wrappers do not count: forget them, so that the
+    # resumed steps run eagerly
+    dense.release_finish_graphs()
     reset_launches()
     fact, resumed_s = wall(lambda: echelonize(
         A, resume=path, device=DEV, dense_block_size=RESUME_BLOCK))

@@ -236,7 +236,12 @@ def last_phase_stats() -> dict:
       (``dense_ops.blocked_finish_step`` calls);
     - finish_rows_skipped: the rows that a tail check of either block loop
       certified as lying in the row space found so far, which no block
-      then eliminated."""
+      then eliminated;
+    - rref_groups: the panel groups that the device block loop's RREFs
+      reach (``dense_ops.rref_groups`` a block, dead or alive);
+    - rref_groups_run: those whose body ran, counted on the card by a
+      replayed graph (one add of a group's predicate, read back with the
+      block's pivots) and on the host by an eager RREF."""
     return dict(_LAST_STATS)
 
 
@@ -260,7 +265,8 @@ def echelonize(A: SparseGFp, opts: EchelonizeOptions | None = None,
              "finish_tail_s": 0.0, "finish_extract_s": 0.0,
              "assemble_s": 0.0, "device_s": 0.0, "rounds": 0,
              "finish_rows": 0, "finish_streamed": 0, "finish_blocks": 0,
-             "finish_rows_skipped": 0}
+             "finish_rows_skipped": 0, "rref_groups": 0,
+             "rref_groups_run": 0}
     runs = dict(pivots.GREEDY_RUNS)
     with phase("echelonize", stats, key="total_s"):
         device = torch.device(device)
@@ -1062,8 +1068,9 @@ def _blocked_device_loop(f, n_s, na, bs, rows_all, cols_all, vals_all,
     a resume from a checkpoint it left finds none and runs it again.
     ``stats`` takes the spans ``finish.wait`` (the loop, up to the first
     readback on the fused path), its child ``finish.tail`` (the tail
-    checks) and ``finish.extract``, and the streaming loop's counts
-    ``finish_streamed``, ``finish_blocks`` and ``finish_rows_skipped``."""
+    checks) and ``finish.extract``, the streaming loop's counts
+    ``finish_streamed``, ``finish_blocks`` and ``finish_rows_skipped``,
+    and both loops' ``rref_groups`` and ``rref_groups_run``."""
     stats = {} if stats is None else stats
     bs_b = dense_ops._bucket(bs)
     na_b = dense_ops._bucket(na)
@@ -1075,8 +1082,10 @@ def _blocked_device_loop(f, n_s, na, bs, rows_all, cols_all, vals_all,
         return _fused_device_finish(f, n_s, na, na_b, bs_b, rows_all,
                                     cols_all, vals_all, device, stats=stats)
     stats["finish_streamed"] = 1
-    stats.setdefault("finish_blocks", 0)
-    stats.setdefault("finish_rows_skipped", 0)
+    for k in ("finish_blocks", "finish_rows_skipped", "rref_groups",
+              "rref_groups_run"):
+        stats.setdefault(k, 0)
+    groups = dense_ops.rref_groups(na, dense_ops.DEFAULT_PANEL, device)
     with phase("finish.wait", stats):
         # the COO goes up once; each block and tail check takes a slice
         coo = [dense_ops.upload(x, dt, device) for x, dt in (
@@ -1107,11 +1116,14 @@ def _blocked_device_loop(f, n_s, na, bs, rows_all, cols_all, vals_all,
         while b0 < n_s and r_d < na:
             b1 = min(n_s, b0 + bs)
             lo, hi = starts[b0], starts[b1]
-            r_d, new_rank, prow_of, pcol_of = dense_ops.blocked_finish_step(
-                f, (b1 - b0, na), dense_ops.DEFAULT_PANEL,
-                coo[0][lo:hi] - b0, coo[1][lo:hi], coo[2][lo:hi], Ud,
-                pc_map, r_d)
+            r_d, new_rank, prow_of, pcol_of, ran = (
+                dense_ops.blocked_finish_step(
+                    f, (b1 - b0, na), dense_ops.DEFAULT_PANEL,
+                    coo[0][lo:hi] - b0, coo[1][lo:hi], coo[2][lo:hi], Ud,
+                    pc_map, r_d))
             stats["finish_blocks"] += 1
+            stats["rref_groups"] += groups
+            stats["rref_groups_run"] += ran
             if new_rank:
                 piv_cols_loc.extend(pcol_of[:new_rank].tolist())
                 piv_rows_glob.extend((b0 + prow_of[:new_rank]).tolist())
@@ -1148,10 +1160,11 @@ def _fused_device_finish(f, n_s, na, na_b, bs, rows_all, cols_all,
                          vals_all, device, stats=None):
     """The reference's single-dispatch dense finish: the whole block loop
     in ``dense_ops.fused_blocked_finish`` (one CUDA graph on a card), then
-    exactly two reads: every block's rank and pivots in one copy, and the
-    sparse extraction of the accumulated U.  ``stats`` takes the spans
-    ``finish.wait`` (the uploads to the first read's return) and
-    ``finish.extract`` (the rest)."""
+    exactly two reads: every block's rank and pivots (with the count of
+    panel groups run) in one copy, and the sparse extraction of the
+    accumulated U.  ``stats`` takes the spans ``finish.wait`` (the uploads
+    to the first read's return) and ``finish.extract`` (the rest), and the
+    counts ``rref_groups`` and ``rref_groups_run``."""
     stats = {} if stats is None else stats
     n_pad = -(-n_s // bs) * bs
     nb = n_pad // bs
@@ -1159,15 +1172,21 @@ def _fused_device_finish(f, n_s, na, na_b, bs, rows_all, cols_all,
         rows, cols, vals = (dense_ops.upload(x, dt, device) for x, dt in (
             (rows_all, np.int64), (cols_all, np.int64),
             (vals_all, np.int32)))
-        Ud, pc_map, _, ranks, prows, pcols = dense_ops.fused_blocked_finish(
-            f, (n_pad, na_b), na, bs, dense_ops.DEFAULT_PANEL, rows, cols,
-            vals)
-        meta = torch.cat([ranks, prows.reshape(-1), pcols.reshape(-1)])
+        Ud, pc_map, _, ranks, prows, pcols, ran = (
+            dense_ops.fused_blocked_finish(
+                f, (n_pad, na_b), na, bs, dense_ops.DEFAULT_PANEL, rows,
+                cols, vals))
+        meta = torch.cat([ranks, prows.reshape(-1), pcols.reshape(-1),
+                          ran.view(1)])
         meta = meta.cpu().numpy()
+    stats["rref_groups"] = stats.get("rref_groups", 0) + nb * (
+        dense_ops.rref_groups(na, dense_ops.DEFAULT_PANEL, device))
+    stats["rref_groups_run"] = (stats.get("rref_groups_run", 0)
+                                + int(meta[-1]))
     with phase("finish.extract", stats):
         ranks = meta[:nb]
         prows = meta[nb:nb + nb * bs].reshape(nb, bs)
-        pcols = meta[nb + nb * bs:].reshape(nb, bs)
+        pcols = meta[nb + nb * bs:-1].reshape(nb, bs)
         piv_cols_loc: list[int] = []
         piv_rows_glob: list[int] = []
         for b in np.flatnonzero(ranks):

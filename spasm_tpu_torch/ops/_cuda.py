@@ -12,6 +12,7 @@ CUDA tensors.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -79,6 +80,12 @@ def _configure(lib):
     lib.spasm_merge_rows.restype = i32
     lib.spasm_merge_rows.argtypes = [vp, vp, vp, vp, vp, vp, i64, i32, i32,
                                      i64, i32, vp]
+    lib.spasm_stream_create.restype = i32
+    lib.spasm_stream_create.argtypes = [ctypes.POINTER(vp)]
+    lib.spasm_graph_if_begin.restype = i32
+    lib.spasm_graph_if_begin.argtypes = [vp, vp, vp]
+    lib.spasm_graph_if_end.restype = i32
+    lib.spasm_graph_if_end.argtypes = [vp]
 
 
 def lib():
@@ -174,3 +181,69 @@ def capturing() -> bool:
     replays launch those kernels without them; ``chip_smoke.py`` counts
     the replays' launches from the profiler's kernel events)."""
     return torch.cuda.is_current_stream_capturing()
+
+
+_body_streams: dict = {}
+_body_pools: dict = {}   # device index -> bodies' pool of the capture
+
+
+@contextlib.contextmanager
+def capture(graph, dev, pool, bodies):
+    """Capture the work of the ``with`` block into ``graph`` on a side
+    stream of ``dev``, its memory from ``pool`` (a
+    ``torch.cuda.graph_pool_handle()``) and that of ``graph_if``'s bodies
+    from ``bodies`` (a ``torch.cuda.MemPool``, which the caller keeps as
+    long as the graph).  The current stream waits for the capture."""
+    cur = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        graph.capture_begin(pool=pool)
+        _body_pools[dev.index] = bodies
+        try:
+            yield
+        finally:
+            del _body_pools[dev.index]
+            graph.capture_end()
+    cur.wait_stream(side)
+
+
+@contextlib.contextmanager
+def graph_if(pred):
+    """Capture the work of the ``with`` block into a conditional (IF) node
+    of the CUDA graph that ``capture`` is capturing on the current stream:
+    a replay runs it only where ``pred`` (a 0-d bool tensor on that device)
+    holds when the node is reached (``csrc/graph_if.cu``).  The block runs
+    on a stream of the device's own, captured into the node's body.  The
+    body's capture is one of its own, which the caching allocator does not
+    count as the graph's, so what this thread allocates meanwhile comes
+    from the capture's ``bodies`` pool: from the default pool, a block
+    free once the capture ends could be handed to cudaFree (an
+    ``empty_cache()``, a retry after an out-of-memory) while the graph
+    still writes it."""
+    dev = pred.device
+    bodies = _body_pools[dev.index]
+    parent = torch.cuda.current_stream(dev)
+    if dev.index not in _body_streams:
+        ptr = ctypes.c_void_p()
+        with torch.cuda.device(dev):
+            check(lib().spasm_stream_create(ctypes.byref(ptr)),
+                  "body stream")
+        _body_streams[dev.index] = torch.cuda.ExternalStream(ptr.value,
+                                                             device=dev)
+    body = _body_streams[dev.index]
+    check(on_device_of(pred, lambda: lib().spasm_graph_if_begin(
+        parent.cuda_stream, body.cuda_stream, pred.data_ptr())),
+        "conditional node")
+    try:
+        with torch.cuda.use_mem_pool(bodies, dev), torch.cuda.stream(body):
+            yield
+    finally:
+        rc = lib().spasm_graph_if_end(body.cuda_stream)
+    check(rc, "conditional node body")
+
+
+def body_pool(dev):
+    """A new memory pool for the IF bodies of one capture (``capture``)."""
+    with torch.cuda.device(dev):
+        return torch.cuda.MemPool()

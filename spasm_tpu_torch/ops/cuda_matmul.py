@@ -67,6 +67,14 @@ def padded(n: int, k: int, m: int, nl: int) -> tuple[int, int, int]:
     return -(-n // BM) * BM, -(-k // BK) * BK, -(-m // bn) * bn
 
 
+def planes_bytes(n: int, k: int, m: int, p: int) -> int:
+    """Bytes of the limb planes that ``modmatmul_cuda`` of an (n, k) by a
+    (k, m) operand at prime p splits into: the size of its ``work``."""
+    nl = num_limbs(p)
+    np_, kp, mp = padded(n, k, m, nl)
+    return nl * (np_ + mp) * kp
+
+
 @functools.lru_cache(maxsize=64)
 def _weights(p: int, nl: int):
     """256**s mod p, balanced, s = 0 .. 2 nl - 2, as a C int64 array."""
@@ -175,7 +183,8 @@ def product_cuda(f, ap: torch.Tensor, bp: torch.Tensor, n: int,
 
 def modmatmul_cuda(f, a: torch.Tensor, b: torch.Tensor,
                    out: torch.Tensor = None,
-                   run: torch.Tensor = None) -> torch.Tensor:
+                   run: torch.Tensor = None,
+                   work: torch.Tensor = None) -> torch.Tensor:
     """C = a @ b (mod p): balanced int32 (n, k) and (k, m) CUDA tensors in
     (any strides), balanced int32 (n, m) out.
 
@@ -184,7 +193,10 @@ def modmatmul_cuda(f, a: torch.Tensor, b: torch.Tensor,
     + a @ b (mod p), and out is returned.  ``run`` (with ``out`` only), a
     0-d bool tensor on the device, is read by the three kernels: where it
     holds False they return at once and out is left as it is, so a
-    product under a device predicate costs no host read."""
+    product under a device predicate costs no host read.  ``work``, a
+    contiguous int8 CUDA tensor of at least ``planes_bytes(n, k, m, p)``
+    elements, takes the limb planes: with it and ``out`` the call
+    allocates nothing."""
     global launches, split_launches
     _check_operand(a, "modmatmul_cuda")
     _check_operand(b, "modmatmul_cuda")
@@ -217,8 +229,16 @@ def modmatmul_cuda(f, a: torch.Tensor, b: torch.Tensor,
     # the three launches (split a, split b, product) in one call into the
     # library: most main-path products are small, and the host's time per
     # call is what they cost
-    planes = torch.empty(nl * (np_ + mp) * kp, dtype=torch.int8,
-                         device=a.device)
+    size = planes_bytes(n, k, m, f.p)
+    if work is None:
+        planes = torch.empty(size, dtype=torch.int8, device=a.device)
+    elif (work.dtype != torch.int8 or work.device != a.device
+          or not work.is_contiguous() or work.numel() < size):
+        raise ValueError(f"work must be a contiguous int8 tensor of at "
+                         f"least {size} elements on {a.device}, got "
+                         f"{work.dtype} {tuple(work.shape)} on {work.device}")
+    else:
+        planes = work
     acc = out is not None
     if not acc:
         out = torch.empty((n, m), dtype=torch.int32, device=a.device)

@@ -23,7 +23,7 @@ PHASES = ("scan and push", "cluster barrier", "pivot row staged",
 def panel_eliminate_cuda(f, npivcols: int, P: torch.Tensor,
                          is_piv_row: torch.Tensor, j0: int,
                          stamps: torch.Tensor = None,
-                         run: torch.Tensor = None):
+                         run: torch.Tensor = None, out=None):
     """Drop-in for ``dense._panel_eliminate(f, P, is_piv_row, j0,
     npivcols, run)`` on CUDA tensors: returns (P', G, prow, pcol, pfound,
     is_piv') and leaves the inputs untouched.  P holds balanced values.
@@ -33,7 +33,13 @@ def panel_eliminate_cuda(f, npivcols: int, P: torch.Tensor,
     PHASES (0 where a step had no pivot).  ``run``, a 0-d bool tensor on
     P's device, is read by the kernel: where it holds False the kernel
     returns at once, and the outputs are P, zero G / prow / pcol, no pivot
-    found and is_piv_row (the reference's empty-panel ``lax.cond``)."""
+    found and is_piv_row (the reference's empty-panel ``lax.cond``).
+
+    ``out``, a tuple (G, prow, pcol, pfound, scratch) of contiguous CUDA
+    tensors (int32 (n, c), int32 (c,), int32 (c,), bool (c,), int32
+    (2n,)), makes the call allocate nothing: the kernel then works on a
+    contiguous P and on is_piv_row in place, the outputs are zeroed and
+    written, and (P, G, prow, pcol, pfound, is_piv_row) is returned."""
     global launches
     if not (P.is_cuda and is_piv_row.device == P.device):
         raise ValueError("panel_eliminate_cuda needs P and is_piv_row on "
@@ -56,14 +62,29 @@ def panel_eliminate_cuda(f, npivcols: int, P: torch.Tensor,
                          f"{1 + len(PHASES)}) tensor on {P.device}")
     flag = _cuda.flag_of(run, P)
     modmul.check_device_prime(f)
-    # the kernel works in place on contiguous copies
-    Pk = P.clone(memory_format=torch.contiguous_format)
-    ispiv = is_piv_row.clone(memory_format=torch.contiguous_format)
-    G = torch.zeros_like(Pk)
-    prow = torch.zeros(c, dtype=torch.int32, device=P.device)
-    pcol = torch.zeros(c, dtype=torch.int32, device=P.device)
-    pfound = torch.zeros(c, dtype=torch.bool, device=P.device)
-    scratch = torch.empty(2 * n, dtype=torch.int32, device=P.device)
+    if out is None:
+        # the kernel works in place on contiguous copies
+        P = P.clone(memory_format=torch.contiguous_format)
+        is_piv_row = is_piv_row.clone(memory_format=torch.contiguous_format)
+        i32 = dict(dtype=torch.int32, device=P.device)
+        out = (torch.empty_like(P), torch.empty(c, **i32),
+               torch.empty(c, **i32),
+               torch.empty(c, dtype=torch.bool, device=P.device),
+               torch.empty(2 * n, **i32))
+    Pk, ispiv = P, is_piv_row
+    G, prow, pcol, pfound, scratch = out
+    want = ((Pk, torch.int32, (n, c)), (ispiv, torch.bool, (n,)),
+            (G, torch.int32, (n, c)), (prow, torch.int32, (c,)),
+            (pcol, torch.int32, (c,)), (pfound, torch.bool, (c,)),
+            (scratch, torch.int32, (2 * n,)))
+    if not all(t.dtype == dt and tuple(t.shape) == sh
+               and t.is_contiguous() and t.device == P.device
+               for t, dt, sh in want):
+        raise ValueError("in place, P, is_piv_row and out must be "
+                         "contiguous tensors of the shapes and dtypes "
+                         "the docstring gives, on one device")
+    for t in (G, prow, pcol, pfound):
+        t.zero_()
     with torch.cuda.device(P.device):
         rc = _cuda.lib().spasm_panel_eliminate(
             Pk.data_ptr(), G.data_ptr(), ispiv.data_ptr(),

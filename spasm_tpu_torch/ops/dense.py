@@ -16,11 +16,13 @@ The reference's control flow stays on the device, as its ``lax.cond`` /
 group predicate ``rank > rank_in`` and the early exit are tensors, which
 the kernels read (K2 and K1 take a one-byte run flag and return at once
 where it is 0).  Captured into a CUDA graph, ``rref_inplace`` makes no host
-read.  Run eagerly, it reads the early exit and whether the group's
-columns are all zero once per group of panels, and issues no launch for a
-group that is dead or empty; the plain versions on the CPU also
-read their predicates on the host, as JAX's ``lax.cond`` evaluates on the
-CPU.  The bits are the same either way.
+read: each group of panels runs under its predicate (the early exit, and
+a nonzero in the group's columns) as a conditional node of the graph
+(``_cuda.graph_if``), so that a replay runs only the groups that can hold
+a pivot.  Run eagerly, it reads that predicate on the host once per group
+and launches nothing for a group that is dead or empty; the plain
+versions on the CPU also read their predicates on the host, as JAX's
+``lax.cond`` evaluates on the CPU.  The bits are the same either way.
 
 ``fused_blocked_finish`` is the reference's single-dispatch dense finish:
 the COO densified once, then the block loop.  On a card it becomes one
@@ -38,7 +40,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from . import modmul
+from . import _cuda, modmul
 from .matmul import modmatmul
 
 DEFAULT_PANEL = 128
@@ -97,12 +99,18 @@ def _balanced(v: int, p: int) -> int:
     return v - p if v > p // 2 else v
 
 
-def _one_panel(f, P, is_piv, j0, npivcols, run=None):
+def _one_panel(f, P, is_piv, j0, npivcols, run, out):
+    """The Jordan elimination of panel P in place: P and is_piv updated,
+    out = (G, prow, pcol, pfound, scratch) written (K2 on CUDA, with no
+    allocation; the plain version on the CPU)."""
     if P.is_cuda:
         from .cuda_panel import panel_eliminate_cuda
 
-        return panel_eliminate_cuda(f, npivcols, P, is_piv, j0, run=run)
-    return _panel_eliminate(f, P, is_piv, j0, npivcols, run)
+        panel_eliminate_cuda(f, npivcols, P, is_piv, j0, run=run, out=out)
+        return
+    got = _panel_eliminate(f, P, is_piv, j0, npivcols, run)
+    for dst, src in zip((P, *out[:4], is_piv), got):
+        dst.copy_(src)
 
 
 # panels per full-width rank-c correction on CUDA: the K panels of a group
@@ -114,8 +122,159 @@ PANEL_GROUP = 4
 _FORCE_GROUP = None  # tests override to exercise grouping on the CPU
 
 
+def _group_size(device) -> int:
+    return _FORCE_GROUP or (PANEL_GROUP if torch.device(device).type
+                            == "cuda" else 1)
+
+
+def rref_groups(npivcols: int, panel: int, device) -> int:
+    """The panel groups of one ``rref_inplace`` with ``npivcols`` pivot
+    columns on ``device``: the groups a finish's RREF reaches, whether
+    their bodies run or not."""
+    npan = -(-npivcols // panel)
+    return -(-npan // _group_size(device))
+
+
+def _group_buffers(f, n: int, m_pad: int, panel: int, group: int,
+                   nmax: int, dev):
+    """Every tensor a panel group's body writes, but the RREF's state: one
+    set per ``rref_inplace``, made on the caller's stream, so that the
+    bodies (captured on a stream of their own) allocate no more than the
+    reductions' scratch, from the capture's pool for its bodies."""
+    c, Kc = panel, group * panel
+    i32 = dict(dtype=torch.int32, device=dev)
+    i64 = dict(dtype=torch.int64, device=dev)
+    b = dict(dtype=torch.bool, device=dev)
+    w = dict(
+        P=torch.empty((group, n, c), **i32),        # the panels, in place
+        G=torch.empty((group, n, c), **i32),        # their corrections
+        prow=torch.empty((group, c), **i32),
+        pcol=torch.empty((group, c), **i32),
+        pfound=torch.empty((group, c), **b),
+        scratch=torch.empty(2 * n, **i32),
+        prows=torch.empty((group, c), **i64),
+        found=torch.empty(group, **b),
+        Rwin=torch.empty((max(1, group - 1), c, c), **i32),
+        slot=torch.arange(c, device=dev),
+        at=torch.empty(c, **i64), val=torch.empty(c, **i64),
+        count=torch.empty((), **i32), rank_in=torch.empty((), **i32),
+        run=torch.empty((), **b), grew=torch.empty((), **b),
+        flag=torch.empty((), **b), pred=torch.empty((), **b),
+        nmax=torch.full((), nmax, **i64), no_slot=torch.full((), -1, **i64),
+        Gcat=torch.empty((n, Kc), **i32),
+        Xrows=torch.empty((Kc, m_pad), **i32),
+        row_nz=torch.empty(n, **b), free=torch.empty(n, **b),
+        work=None)
+    if group > 1:
+        # L's diagonal blocks and the blocks above stay zero
+        w.update(L=torch.zeros((Kc, Kc), **i32),
+                 Lp=torch.empty((2, Kc, Kc), **i32),
+                 T=torch.empty((2, Kc, Kc), **i32),
+                 Rcat=torch.empty((Kc, m_pad), **i32))
+    if dev.type == "cuda":
+        from .cuda_matmul import planes_bytes
+
+        # K1's limb planes, shared by the body's products in stream order:
+        # the largest is the group's update (n, Kc) @ (Kc, m_pad)
+        w["work"] = torch.empty(planes_bytes(max(n, Kc), Kc, m_pad, f.p),
+                                dtype=torch.int8, device=dev)
+    return w
+
+
+def _group_body(f, X, gi: int, st: dict, w: dict, npivcols: int,
+                npan: int, panel: int, group: int, nmax: int) -> None:
+    """Panel group gi of ``rref_inplace``: its panels' eliminations and the
+    full-width update, on the state st (X, is_piv, prow_of, pcol_of, rank,
+    alive) in place, so that a body a replay skips leaves it as a dead group
+    does.  Every other tensor it writes is one of ``w``'s."""
+    c = panel
+    rank, work = st["rank"], w["work"]
+    L = w.get("L")
+
+    def blk(k, l):
+        return L[k * c:(k + 1) * c, l * c:(l + 1) * c]
+
+    w["rank_in"].copy_(rank)
+    for k in range(group):
+        j0 = (gi * group + k) * c
+        Xwin = X[:, j0:j0 + c]
+        P = w["P"][k]
+        P.copy_(Xwin)
+        # corrected windows of the earlier panels' pivot rows at this
+        # panel's columns: R_l|win = Xwin[prows_l] + sum_j C_lj R_j|win.
+        # A panel without pivots has G_l == 0 and adds nothing, so its
+        # products are skipped.
+        for l in range(k):
+            rw = w["Rwin"][l]
+            torch.index_select(Xwin, 0, w["prows"][l], out=rw)
+            for j in range(l):
+                modmatmul(f, blk(l, j), w["Rwin"][j], out=rw,
+                          run=w["found"][j], work=work)
+            modmatmul(f, w["G"][l], rw, out=P, run=w["found"][l], work=work)
+        # a window with no nonzero is a no-op panel: the kernel returns at
+        # once (a body runs only while alive holds)
+        torch.any(P, out=w["run"])
+        pfound = w["pfound"][k]
+        _one_panel(f, P, st["is_piv"], j0, npivcols, w["run"],
+                   (w["G"][k], w["prow"][k], w["pcol"][k], pfound,
+                    w["scratch"]))
+        prows = w["prows"][k]
+        prows.copy_(w["prow"][k])
+        # C_kl coefficient blocks for the group-end resolve (unused slots
+        # gather row 0; their Gcat columns are zero)
+        for l in range(k):
+            torch.index_select(w["G"][l], 0, prows, out=blk(k, l))
+        torch.any(pfound, out=w["found"][k])
+        # found slots are a prefix, in column order within the panel; the
+        # writes of unused slots land in slot nmax
+        at, val = w["at"], w["val"]
+        torch.add(w["slot"], rank, out=at)
+        torch.where(pfound, at, w["nmax"], out=at)
+        torch.where(pfound, prows, w["no_slot"], out=val)
+        st["prow_of"].scatter_(0, at, val)
+        torch.add(w["pcol"][k], j0, out=val)
+        torch.where(pfound, val, w["no_slot"], out=val)
+        st["pcol_of"].scatter_(0, at, val)
+        torch.sum(pfound, dim=0, dtype=torch.int32, out=w["count"])
+        rank.add_(w["count"])
+    # no pivot in the whole group: Gcat == 0 and X is unchanged
+    grew = torch.gt(rank, w["rank_in"], out=w["grew"])
+    torch.cat(tuple(w["G"]), dim=1, out=w["Gcat"])            # (n, K*c)
+    torch.index_select(X, 0, w["prows"].view(-1), out=w["Xrows"])
+    if group > 1:
+        # T = I + L + .. + L^(K-1) = (I - L)^-1 (L is strictly block-lower)
+        # by the Neumann product
+        T, spare = w["T"][0], w["T"][1]
+        T.copy_(L)
+        T.diagonal().fill_(1)
+        Lp = L
+        for i in range((group - 1).bit_length() - 1):
+            nxt = w["Lp"][i % 2]
+            nxt.zero_()
+            Lp = modmatmul(f, Lp, Lp, out=nxt, run=grew, work=work)
+            # (I + Lp) T = T + Lp T
+            spare.copy_(T)
+            modmatmul(f, Lp, T, out=spare, run=grew, work=work)
+            T, spare = spare, T
+        Rcat = w["Rcat"]
+        Rcat.zero_()
+        modmatmul(f, T, w["Xrows"], out=Rcat, run=grew,
+                  work=work)                                   # (Kc, m_pad)
+    else:
+        Rcat = w["Xrows"]
+    modmatmul(f, w["Gcat"], Rcat, out=X, run=grew, work=work)
+    # early exit: once every row with a nonzero in a pivot-eligible column
+    # is a pivot row, the later groups are no-ops
+    row_nz, flag = w["row_nz"], w["flag"]
+    torch.any(X[:, :npan * panel], dim=1, out=row_nz)
+    row_nz.logical_and_(torch.logical_not(st["is_piv"], out=w["free"]))
+    st["alive"].logical_and_(torch.any(row_nz, out=flag))
+    st["alive"].logical_and_(torch.lt(rank, nmax, out=flag))
+
+
 def rref_inplace(f, X: torch.Tensor, npivcols: int,
-                 panel: int = DEFAULT_PANEL, alive: torch.Tensor = None):
+                 panel: int = DEFAULT_PANEL, alive: torch.Tensor = None,
+                 runs: torch.Tensor = None):
     """Blocked Jordan RREF of X (n, m) over GF(p).  Only the first
     ``npivcols`` columns are searched for pivots.
 
@@ -125,7 +284,8 @@ def rref_inplace(f, X: torch.Tensor, npivcols: int,
     pivot in column order (-1 past rank), and the (n,) pivot-row mask.  X
     itself is not modified.  ``alive`` (a 0-d bool tensor, default True)
     is the early exit's predicate on entry: False makes the whole RREF a
-    no-op.
+    no-op.  ``runs`` (a 0-d int64 tensor on X's device) takes the number
+    of panel groups whose body ran (of ``rref_groups``).
 
     Panels run in groups of PANEL_GROUP on CUDA (1 on the CPU): within a
     group each panel sees the earlier panels' row operations only on its
@@ -133,111 +293,71 @@ def rref_inplace(f, X: torch.Tensor, npivcols: int,
     X += [G_1|..|G_K] @ [R_1;..;R_K] happens once per group.  This is exact,
     so the grouping does not change the result.
 
-    The control flow is the reference's, on the device: a panel's kernel
-    runs under ``any(P != 0) & alive``, the products of a panel's
+    The control flow is the reference's, on the device: a group's body
+    (``_group_body``) runs under ``alive & any(X[:, group's columns] !=
+    0)``, a panel's kernel under ``any(P != 0)``, the products of a panel's
     corrections under its ``any(pfound)``, the group's under ``rank >
     rank_in``, and ``alive`` becomes False once every row with a nonzero in
     a pivot-eligible column is a pivot row.  The kernels read these flags.
-    Under a CUDA graph capture the host reads nothing and every group is
-    recorded; otherwise it reads ``alive`` and whether the group's columns
-    hold a nonzero once before each group, stops once ``alive`` is False
-    (the later groups would be no-ops) and skips an all-zero group."""
+    Under a CUDA graph capture the host reads nothing: each group's body is
+    captured into a conditional (IF) node on its predicate, so a replay
+    runs only the groups that can hold a pivot, and ``runs`` adds the
+    predicate on the card.  Otherwise the host reads the predicate once
+    before each group, stops once ``alive`` is False (the later groups
+    would be no-ops), skips an all-zero group, and adds its count of the
+    bodies it ran to ``runs`` once at the end.  The state the bodies
+    update (X's padded copy, rank, the pivot lists and mask, alive) is
+    allocated before the first group and written in place, so a skipped
+    body leaves it as a dead group does."""
     n, m = X.shape
     dev = X.device
-    read_exit = not (X.is_cuda and torch.cuda.is_current_stream_capturing())
+    capture = X.is_cuda and torch.cuda.is_current_stream_capturing()
     nmax = min(n, npivcols)
     npan = -(-npivcols // panel)
-    group = _FORCE_GROUP or (PANEL_GROUP if X.is_cuda else 1)
-    ngrp = -(-npan // group)
-    m_pad = max(m, ngrp * group * panel)
+    group = _group_size(dev)
+    ngrp = rref_groups(npivcols, panel, dev)
+    Kc = group * panel
+    m_pad = max(m, ngrp * Kc)
     Xp = torch.zeros((n, m_pad), dtype=torch.int32, device=dev)
     Xp[:, :m] = X
     X = Xp
-    is_piv = torch.zeros(n, dtype=torch.bool, device=dev)
     # slot nmax takes the writes of unused slots and is cut off at the end
     # (the reference's scatter with mode="drop")
-    prow_of = torch.full((nmax + 1,), -1, dtype=torch.int64, device=dev)
-    pcol_of = torch.full((nmax + 1,), -1, dtype=torch.int64, device=dev)
-    rank = torch.zeros((), dtype=torch.int32, device=dev)
-    if alive is None:
-        alive = torch.ones((), dtype=torch.bool, device=dev)
-    slot = torch.arange(panel, device=dev)
+    st = dict(
+        is_piv=torch.zeros(n, dtype=torch.bool, device=dev),
+        prow_of=torch.full((nmax + 1,), -1, dtype=torch.int64, device=dev),
+        pcol_of=torch.full((nmax + 1,), -1, dtype=torch.int64, device=dev),
+        rank=torch.zeros((), dtype=torch.int32, device=dev),
+        alive=(torch.ones((), dtype=torch.bool, device=dev) if alive is None
+               else alive.clone()))
+    w = _group_buffers(f, n, m_pad, panel, group, nmax, dev)
+    ran = 0
     for gi in range(ngrp):
-        if read_exit:
-            # one read a group: stop once alive is False, and skip a group
-            # whose columns are all zero (its panels find no pivot and its
-            # update is a no-op), which the kernels would skip on their
-            # flags after a launch each
-            g0 = gi * group * panel
-            live, nonzero = torch.stack(
-                [alive, X[:, g0:g0 + group * panel].any()]).tolist()
-            if not live:
-                break
-            if not nonzero:
-                continue
-        rank_in = rank
-        Gs, prows_l, wins, found_l = [], [], [], []
-        for k in range(group):
-            j0 = (gi * group + k) * panel
-            Xwin = X[:, j0:j0 + panel]
-            # the window corrections are added in place: a copy of its own
-            P = Xwin if k == 0 else Xwin.clone(
-                memory_format=torch.contiguous_format)
-            # corrected windows of the earlier panels' pivot rows at this
-            # panel's columns: R_l|win = Xwin[prows_l] + sum_j C_lj R_j|win.
-            # A panel without pivots has G_l == 0 and adds nothing, so its
-            # products are skipped.
-            Rwin = []
-            for l in range(k):
-                rw = Xwin.index_select(0, prows_l[l])
-                for j in range(l):
-                    modmatmul(f, wins[l][j], Rwin[j], out=rw, run=found_l[j])
-                Rwin.append(rw)
-                modmatmul(f, Gs[l], rw, out=P, run=found_l[l])
-            # a window with no nonzero is a no-op panel, and so is every
-            # panel once alive is False: the kernel returns at once
-            _, G, prows, pcols, pfound, is_piv = _one_panel(
-                f, P, is_piv, j0, npivcols, P.any() & alive)
-            prows, pcols = prows.long(), pcols.long()
-            # C_kl coefficient blocks for the group-end resolve (unused
-            # slots gather row 0; their Gcat columns are zero)
-            wins.append([Gs[l].index_select(0, prows) for l in range(k)])
-            Gs.append(G)
-            prows_l.append(prows)
-            found_l.append(pfound.any())
-            # found slots are a prefix, in column order within the panel
-            slots = torch.where(pfound, rank + slot, nmax)
-            prow_of.scatter_(0, slots, torch.where(pfound, prows, -1))
-            pcol_of.scatter_(0, slots, torch.where(pfound, j0 + pcols, -1))
-            rank = rank + pfound.sum(dtype=torch.int32)
-        # no pivot in the whole group: Gcat == 0 and X is unchanged
-        grew = rank > rank_in
-        Gcat = torch.cat(Gs, dim=1)                        # (n, K*c)
-        Xrows = X.index_select(0, torch.cat(prows_l))
-        if group > 1:
-            Kc = group * panel
-            L = torch.zeros((Kc, Kc), dtype=torch.int32, device=dev)
-            for k in range(group):
-                for l in range(k):
-                    L[k * panel:(k + 1) * panel,
-                      l * panel:(l + 1) * panel] = wins[k][l]
-            eye = torch.eye(Kc, dtype=torch.int32, device=dev)
-            T = modmul.add(f, eye, L)
-            Lp = L
-            for _ in range((group - 1).bit_length() - 1):
-                Lp = modmatmul(f, Lp, Lp, out=torch.zeros_like(Lp), run=grew)
-                # (I + Lp) T = T + Lp T
-                T = modmatmul(f, Lp, T, out=T.clone(), run=grew)
-            Rcat = modmatmul(f, T, Xrows, out=torch.zeros_like(Xrows),
-                             run=grew)                     # (Kc, m_pad)
-        else:
-            Rcat = Xrows
-        modmatmul(f, Gcat, Rcat, out=X, run=grew)
-        # early exit: once every row with a nonzero in a pivot-eligible
-        # column is a pivot row, the later groups are no-ops
-        row_nz = (X[:, :npan * panel] != 0).any(dim=1)
-        alive = alive & (rank < nmax) & (row_nz & ~is_piv).any()
-    return X[:, :m], rank, prow_of[:nmax], pcol_of[:nmax], is_piv
+        g0 = gi * Kc
+        if capture:
+            pred = torch.any(X[:, g0:g0 + Kc], out=w["pred"])
+            pred.logical_and_(st["alive"])
+            if runs is not None:
+                runs.add_(pred)
+            with _cuda.graph_if(pred):
+                _group_body(f, X, gi, st, w, npivcols, npan, panel, group,
+                            nmax)
+            continue
+        # one read a group: stop once alive is False, and skip a group
+        # whose columns are all zero (its panels find no pivot and its
+        # update is a no-op)
+        live, nonzero = torch.stack(
+            [st["alive"], X[:, g0:g0 + Kc].any()]).tolist()
+        if not live:
+            break
+        if not nonzero:
+            continue
+        _group_body(f, X, gi, st, w, npivcols, npan, panel, group, nmax)
+        ran += 1
+    if runs is not None and not capture:
+        runs.add_(ran)
+    return (X[:, :m], st["rank"], st["prow_of"][:nmax], st["pcol_of"][:nmax],
+            st["is_piv"])
 
 
 def _rref(f, X: torch.Tensor, npivcols: int, panel: int,
@@ -414,7 +534,8 @@ def blocked_finish_step(f, shape, panel: int, rows, cols, vals,
     int64 are updated in place (the reference donates them); cap must hold
     r_d plus the block's rows: the finish's rank bound min(rows, cols) plus
     a block always does (``stream_buffers``).  Returns (r_d', new_rank,
-    prow_of, pcol_of).
+    prow_of, pcol_of, groups_run), the last the panel groups whose body
+    the step's RREF ran (of ``rref_groups(shape[1], panel, device)``).
 
     On a card, with the buffers of ``stream_buffers``, the step is replayed
     as a CUDA graph (``_step_on_card``): one read a step, the block's rank
@@ -425,10 +546,12 @@ def blocked_finish_step(f, shape, panel: int, rows, cols, vals,
                                  pc_map, r_d)
     X = densify_coo(shape, rows, cols, vals, Ud.device)
     rd = torch.full((), r_d, dtype=torch.int64, device=Ud.device)
+    runs = torch.zeros((), dtype=torch.int64, device=Ud.device)
     new_rank, prow_of, pcol_of, _ = _block_body(f, X, Ud, pc_map, rd, r_d,
-                                                shape[1], panel)
-    new_rank = int(new_rank)   # the streaming loop reads each block's rank
-    return r_d + new_rank, new_rank, prow_of, pcol_of
+                                                shape[1], panel, runs)
+    # the streaming loop reads each block's rank
+    new_rank, ran = torch.stack([new_rank.long(), runs]).tolist()
+    return r_d + new_rank, new_rank, prow_of, pcol_of, ran
 
 
 # The streaming finish's state on a card: its accumulated panel Ud and
@@ -437,8 +560,9 @@ def blocked_finish_step(f, shape, panel: int, rows, cols, vals,
 # is keyed by (p, block shape, panel, panel group, K), K the bucketed rank
 # so far (``_bucket``); it is captured on a key's second step, the first
 # running ``_block_body`` eagerly (the warm-up the capture asks for), and
-# replayed after.  The graphs share one memory pool: a step's transients
-# live only through its replay.  ``release_finish_graphs`` frees it all.
+# replayed after.  The graphs share one memory pool, and one for their IF
+# bodies (``_cuda.capture``): a step's transients live only through its
+# replay.  ``release_finish_graphs`` frees it all.
 _stream: dict = {}
 
 
@@ -476,26 +600,15 @@ def _step_on_card(f, shape, panel, rows, cols, vals, Ud, pc_map, r_d):
                            for x in (rows, cols, vals)))
         if key not in _stream["seen"]:
             _stream["seen"].add(key)
-            new_rank, prow_of, pcol_of, _ = _block_body(
-                f, X, Ud, pc_map, rd, K, shape[1], panel)
-            meta = torch.cat([new_rank.view(1).long(), prow_of, pcol_of])
+            meta = _step_meta(f, X, Ud, pc_map, rd, K, shape[1], panel)
         else:
             if "pool" not in _stream:
                 _stream["pool"] = torch.cuda.graph_pool_handle()
-            cur = torch.cuda.current_stream(dev)
+                _stream["bodies"] = _cuda.body_pool(dev)
             graph = torch.cuda.CUDAGraph()
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(cur)
-            with torch.cuda.stream(side):
-                graph.capture_begin(pool=_stream["pool"])
-                try:
-                    new_rank, prow_of, pcol_of, _ = _block_body(
-                        f, X, Ud, pc_map, rd, K, shape[1], panel)
-                    meta = torch.cat([new_rank.view(1).long(), prow_of,
-                                      pcol_of])
-                finally:
-                    graph.capture_end()
-            cur.wait_stream(side)
+            with _cuda.capture(graph, dev, _stream["pool"],
+                               _stream["bodies"]):
+                meta = _step_meta(f, X, Ud, pc_map, rd, K, shape[1], panel)
             _stream["graphs"][key] = dict(graph=graph, X=X, rd=rd,
                                           meta=meta)
             graph.replay()
@@ -508,7 +621,17 @@ def _step_on_card(f, shape, panel, rows, cols, vals, Ud, pc_map, r_d):
     meta = meta.cpu()
     n = shape[0]
     new_rank = int(meta[0])
-    return r_d + new_rank, new_rank, meta[1:1 + n], meta[1 + n:]
+    return r_d + new_rank, new_rank, meta[2:2 + n], meta[2 + n:], int(meta[1])
+
+
+def _step_meta(f, X, Ud, pc_map, rd, K, npiv, panel):
+    """``_block_body`` of a streaming step, and what the host reads of it
+    in one copy: [new_rank, groups run, prow_of, pcol_of]."""
+    runs = torch.zeros((), dtype=torch.int64, device=X.device)
+    new_rank, prow_of, pcol_of, _ = _block_body(f, X, Ud, pc_map, rd, K,
+                                                npiv, panel, runs)
+    return torch.cat([new_rank.view(1).long(), runs.view(1), prow_of,
+                      pcol_of])
 
 
 # element-count cap for the fused finish: the densified matrix (n_pad x na)
@@ -546,15 +669,17 @@ def _densify_into(X: torch.Tensor, rows, cols, vals) -> None:
 
 
 def _block_body(f, Xb: torch.Tensor, Ud: torch.Tensor, pc_map: torch.Tensor,
-                r_d: torch.Tensor, K: int, npiv: int, panel: int):
+                r_d: torch.Tensor, K: int, npiv: int, panel: int,
+                runs: torch.Tensor = None):
     """One row block of the blocked finish on the device, with no host
     read, under the device predicate ``r_d < npiv``: eliminate Xb (bs, na)
     against Ud[:K], Jordan-RREF it, back-eliminate Ud[:K] against its new
     pivots and append them at r_d (a 0-d int64 tensor, not advanced here).
     The rows of Ud from r_d on are zero, so any static K >= r_d gives the
-    same bits; Ud and pc_map need r_d + bs rows.  Returns (new_rank,
-    prow_of, pcol_of, live): prow_of / pcol_of padded with -1 to bs slots,
-    live the predicate."""
+    same bits; Ud and pc_map need r_d + bs rows.  ``runs`` takes the
+    RREF's count of the panel groups it ran (``rref_inplace``).  Returns
+    (new_rank, prow_of, pcol_of, live): prow_of / pcol_of padded with -1
+    to bs slots, live the predicate."""
     bs, na = Xb.shape
     nmax = min(bs, npiv)
     slot = torch.arange(bs, device=Xb.device)
@@ -565,7 +690,7 @@ def _block_body(f, Xb: torch.Tensor, Ud: torch.Tensor, pc_map: torch.Tensor,
         Xb = Xb.clone()
         modmatmul(f, modmul.neg(f, coeff), Ud[:K], out=Xb, run=live_blk)
     R, new_rank, prow_of, pcol_of, _ = rref_inplace(f, Xb, npiv, panel,
-                                                    alive=live_blk)
+                                                    alive=live_blk, runs=runs)
     if nmax < bs:
         prow_of = torch.nn.functional.pad(prow_of, (0, bs - nmax), value=-1)
         pcol_of = torch.nn.functional.pad(pcol_of, (0, bs - nmax), value=-1)
@@ -592,7 +717,8 @@ def _fused_body(f, X: torch.Tensor, npiv: int, bs: int, panel: int):
     """The block loop of ``fused_blocked_finish`` on the dense (n_pad, na)
     X, with no host read: every block runs, under the device predicate
     ``r_d < npiv`` (the reference's while_loop condition), which the
-    kernels of a block read; the K of a block's products is static."""
+    kernels of a block read; the K of a block's products is static.  The
+    blocks' RREFs add the panel groups they ran to ``groups_run``."""
     n_pad, na = X.shape
     dev = X.device
     nblocks = n_pad // bs
@@ -603,26 +729,28 @@ def _fused_body(f, X: torch.Tensor, npiv: int, bs: int, panel: int):
     ranks = torch.zeros(nblocks, dtype=torch.int64, device=dev)
     prows = torch.zeros((nblocks, bs), dtype=torch.int64, device=dev)
     pcols = torch.zeros((nblocks, bs), dtype=torch.int64, device=dev)
+    groups_run = torch.zeros((), dtype=torch.int64, device=dev)
     for b in range(nblocks):
         # r_d <= b * bs, and the rows of Ud from r_d on are zero: the host
         # knows a static K for both products of this block (the reference
         # loops over KC-row chunks up to r_d on the device instead)
         new_rank, prow_of, pcol_of, live_blk = _block_body(
             f, X[b * bs:(b + 1) * bs], Ud, pc_map, r_d, min(b * bs, cap),
-            npiv, panel)
+            npiv, panel, groups_run)
         ranks[b] = new_rank
         # a block the loop does not reach keeps the reference's zeros
         prows[b] = torch.where(live_blk, prow_of, 0)
         pcols[b] = torch.where(live_blk, pcol_of, 0)
         r_d = r_d + new_rank
-    return Ud, pc_map, r_d, ranks, prows, pcols
+    return Ud, pc_map, r_d, ranks, prows, pcols, groups_run
 
 
 # CUDA graphs of the fused finish, by (p, device, n_pad, na, bs, panel, npiv,
 # panel group), least recently used first.  One holds in device memory its
 # static input (n_pad x na int32: 256 MiB at the flagship's 8192^2,
-# ``input_bytes``) and its private pool: the outputs (Ud, cap x na int32)
-# and every transient of one finish (``graph_bytes``).  A shape is captured
+# ``input_bytes``) and its private pools, the graph's and its IF bodies':
+# the outputs (Ud, cap x na int32) and every transient of one finish
+# (``graph_bytes``).  A shape is captured
 # on its second call: ``_seen`` holds the keys met once, which hold no
 # memory.  ``release_finish_graphs`` frees both.
 GRAPH_CACHE_SIZE = 2
@@ -673,23 +801,17 @@ def _fused_on_card(f, shape, npiv, bs, panel, rows, cols, vals):
     del _seen[key]
     while len(_graphs) >= GRAPH_CACHE_SIZE:
         _graphs.popitem(last=False)
-    cur = torch.cuda.current_stream(dev)
     X = torch.empty(shape, dtype=torch.int32, device=dev)
     _densify_into(X, rows, cols, vals)
     t0 = time.perf_counter()
     before = torch.cuda.memory_reserved(dev)
     graph = torch.cuda.CUDAGraph()
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(cur)
-    with torch.cuda.stream(side):
-        graph.capture_begin()
-        try:
-            out = _fused_body(f, X, npiv, bs, panel)
-        finally:
-            graph.capture_end()
-    cur.wait_stream(side)
+    bodies = _cuda.body_pool(dev)
+    with _cuda.capture(graph, dev, torch.cuda.graph_pool_handle(), bodies):
+        out = _fused_body(f, X, npiv, bs, panel)
     nbytes = torch.cuda.memory_reserved(dev) - before
-    _graphs[key] = dict(graph=graph, X=X, out=out, nbytes=nbytes)
+    _graphs[key] = dict(graph=graph, X=X, out=out, nbytes=nbytes,
+                        bodies=bodies)
     last_finish.update(graph="captured",
                        capture_s=time.perf_counter() - t0,
                        graph_bytes=nbytes, input_bytes=X.nbytes)
@@ -710,10 +832,12 @@ def fused_blocked_finish(f, shape, npiv: int, bs: int, panel: int, rows,
     shape = (n_pad, na) with n_pad a multiple of bs; npiv <= na is the true
     column count: only those columns hold pivots, and once they all do the
     later blocks are no-ops.  rows, cols, vals: the COO as tensors on the
-    device.  Returns (Ud, pc_map, r_d, ranks, prows, pcols), tensors on
-    the device: Ud (cap, na) with pc_map (cap,) and r_d for
+    device.  Returns (Ud, pc_map, r_d, ranks, prows, pcols, groups_run),
+    tensors on the device: Ud (cap, na) with pc_map (cap,) and r_d for
     ``extract_u_csr``, ranks (nblocks,), prows / pcols (nblocks, bs) the
-    per-block pivots (slot order = pivot-column order within the block).
+    per-block pivots (slot order = pivot-column order within the block),
+    groups_run the panel groups whose body the blocks' RREFs ran (of
+    nblocks * ``rref_groups(npiv, panel, device)``).
 
     On a card the loop becomes one CUDA graph per (p, shape, npiv, bs,
     panel, panel group), cached (``GRAPH_CACHE_SIZE``): the first call of a

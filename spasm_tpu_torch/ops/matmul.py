@@ -58,7 +58,8 @@ def modmatmul_plain(f, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def modmatmul(f, a: torch.Tensor, b: torch.Tensor,
               out: torch.Tensor = None,
-              run: torch.Tensor = None) -> torch.Tensor:
+              run: torch.Tensor = None,
+              work: torch.Tensor = None) -> torch.Tensor:
     """C = a @ b (mod p), balanced int32 in and out.  CUDA tensors go to
     the K1 kernel, CPU tensors to the plain version.
 
@@ -66,11 +67,13 @@ def modmatmul(f, a: torch.Tensor, b: torch.Tensor,
     mod p; contiguous, sharing no memory with a or b), and out is
     returned.  ``run`` (with ``out``), a 0-d bool tensor, skips the product
     where it holds False: the kernel reads it on the card, the plain
-    version on the host, as ``lax.cond`` evaluates on the CPU."""
+    version on the host, as ``lax.cond`` evaluates on the CPU.  ``work``
+    is K1's limb-plane buffer (``cuda_matmul.modmatmul_cuda``); the plain
+    version takes none."""
     if a.is_cuda or b.is_cuda:
         from .cuda_matmul import modmatmul_cuda
 
-        return modmatmul_cuda(f, a, b, out=out, run=run)
+        return modmatmul_cuda(f, a, b, out=out, run=run, work=work)
     if out is None:
         if run is not None:
             raise ValueError("modmatmul: run needs out")

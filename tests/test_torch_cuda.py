@@ -17,6 +17,7 @@ from spasm_tpu_torch._host.fixtures import (simplex_boundary,
 from spasm_tpu_torch.interop import lu_arrays
 from spasm_tpu_torch.ops import (cuda_matmul, cuda_merge, cuda_panel, dense,
                                  matmul, merge, sparse_onepass)
+from torch_dead_groups import RUNS, dead_group_matrix
 
 pytestmark = pytest.mark.cuda
 PRIMES = [5, 42013, 92681, 2147483629, 4294967291]
@@ -554,46 +555,114 @@ def _finish_case(f, seed, n=600, m=500):
     return r, c, X[r, c].astype(np.int32)
 
 
-def _fused(f, r, c, v, device, bs=128, m=500):
-    n_pad = -(-600 // bs) * bs
+def _dead_groups(f, seed):
+    # five blocks of 128 rows over three groups of four panels (the last
+    # 476 columns wide), which run 3 group bodies of 15
+    X = dead_group_matrix(f, seed, bs=128, gw=512, last=476)
+    r, c = np.nonzero(X)
+    return r, c, X[r, c].astype(np.int32)
+
+
+def _fused(f, r, c, v, device, bs=128, n=600, m=500):
+    n_pad = -(-n // bs) * bs
     to = (lambda x: torch.from_numpy(x).to(device))
     out = dense.fused_blocked_finish(f, (n_pad, dense._bucket(m)), m, bs,
                                      128, to(r), to(c), to(v))
     return [x.cpu() for x in out]
 
 
+def _card_grouped(monkeypatch, call):
+    # call() on the CPU with the card's panel groups, for the count of
+    # group bodies run (the CPU's own groups give the same bits)
+    with monkeypatch.context() as mp:
+        mp.setattr(dense, "_FORCE_GROUP", dense.PANEL_GROUP)
+        return call()
+
+
+@pytest.mark.parametrize("case", ["random", "dead_groups"])
 @pytest.mark.parametrize("p", [42013, 2147483629, 4294967291])
-def test_fused_finish_graph_replays_equal_eager_and_cpu(p, card):
+def test_fused_finish_graph_replays_equal_eager_and_cpu(p, case, card,
+                                                        monkeypatch):
     # the first call of a shape runs the loop eagerly, the second captures
     # it and replays, later ones replay the graph on new data of the same
-    # shape; all equal the CPU's fused finish.  The wrappers count the
-    # eager run's launches only: a capture runs nothing, a replay bypasses
-    # them
+    # shape; all equal the CPU's fused finish bit for bit (the CPU's panel
+    # groups of one panel against the card's of four), and the count of
+    # group bodies run equals the CPU's with the card's groups.  The
+    # wrappers count the eager run's launches only: a capture runs
+    # nothing, a replay bypasses them.  "dead_groups" makes most group
+    # bodies dead: leading all-zero groups, a dry block, a dependent
+    # block, an early exit in the middle of a block, and a block whose
+    # last group is live
     f = field(p)
+    shape = dict(n=600, m=500) if case == "random" else dict(n=640, m=1500)
+    make = _finish_case if case == "random" else _dead_groups
     dense.release_finish_graphs()
     try:
         for seed, how in zip((11, 12, 13, 14),
                              ("eager", "captured", "replayed", "replayed")):
-            r, c, v = _finish_case(f, seed)
+            r, c, v = make(f, seed)
             before = cuda_panel.launches, cuda_matmul.launches
-            got = _fused(f, r, c, v, card)
+            got = _fused(f, r, c, v, card, **shape)
             assert dense.last_finish["graph"] == how
             after = cuda_panel.launches, cuda_matmul.launches
             if how == "eager":
                 assert all(a > b for a, b in zip(after, before))
             else:
                 assert after == before
-            want = _fused(f, r, c, v, "cpu")
-            for g, w in zip(got, want):
+            want = _fused(f, r, c, v, "cpu", **shape)
+            assert len(got) == len(want) == 7
+            for g, w in zip(got[:6], want):
                 assert torch.equal(g, w)
+            grouped = _card_grouped(monkeypatch, lambda: _fused(
+                f, r, c, v, "cpu", **shape))
+            assert torch.equal(got[6], grouped[6])
+            if case == "dead_groups":
+                assert got[3].tolist() == [128, 0, 128, 0, 128]
+                assert int(got[6]) == RUNS
         assert dense.last_finish["graph_bytes"] > 0
     finally:
         dense.release_finish_graphs()
 
 
-def test_fused_finish_makes_no_host_sync(card):
-    # the captured and the replayed finish (densify, capture or replay)
-    # under the sync debugger: any synchronizing call raises
+def test_replays_outlive_empty_cache(card):
+    # what the conditional nodes' bodies allocate at capture lives in a
+    # pool held with the graph, not in the default pool: no segment of the
+    # body stream is the default pool's, and after empty_cache() tensors
+    # made and filled in the memory it returned are left alone by later
+    # replays, which still equal the CPU
+    f = field(42013)
+    from spasm_tpu_torch.ops import _cuda
+    dense.release_finish_graphs()
+    try:
+        for seed in (11, 12):
+            _fused(f, *_finish_case(f, seed), card)
+        assert dense.last_finish["graph"] == "captured"
+        body = _cuda._body_streams[torch.cuda.current_device()].cuda_stream
+        segs = [s for s in torch.cuda.memory_snapshot()
+                if s["stream"] == body]
+        assert all(tuple(s["segment_pool_id"]) != (0, 0) for s in segs)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        fill = [torch.full((1 << 18,), -7, dtype=torch.int32, device=card)
+                for _ in range(64)]                      # 1 MiB each
+        fill.append(torch.full((1 << 28,), -7, dtype=torch.int32,
+                               device=card))             # 1 GiB
+        for seed in (13, 14):
+            r, c, v = _finish_case(f, seed)
+            got = _fused(f, r, c, v, card)
+            assert dense.last_finish["graph"] == "replayed"
+            want = _fused(f, r, c, v, "cpu")
+            for g, w in zip(got[:6], want):
+                assert torch.equal(g, w)
+            assert all(bool((t == -7).all()) for t in fill), seed
+    finally:
+        dense.release_finish_graphs()
+
+
+def test_fused_finish_makes_no_host_sync(card, monkeypatch):
+    # the captured and the replayed finish (densify, capture or replay,
+    # the groups' conditional nodes) under the sync debugger: any
+    # synchronizing call raises
     f = field(42013)
     dense.release_finish_graphs()
     r, c, v = _finish_case(f, 14)
@@ -613,7 +682,8 @@ def test_fused_finish_makes_no_host_sync(card):
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             assert dense.last_finish["graph"] == how
-            for g, w in zip(out, want):
+            # the last value, the count of group bodies run, is the card's
+            for g, w in zip(out[:6], want):
                 assert torch.equal(g.cpu(), w)
     finally:
         dense.release_finish_graphs()
@@ -643,26 +713,71 @@ def test_echelonize_fused_equals_streaming_on_the_card(card, monkeypatch):
             assert np.array_equal(other[k], cpu[k]), k
 
 
-def test_streaming_steps_replay_equal_eager_and_cpu(card, monkeypatch):
+def _steps(f, X, device, bs=128):
+    # the streaming finish's steps over X's blocks, on the card with the
+    # buffers of stream_buffers (the graph-replayed steps)
+    n, m = X.shape
+    r, c = np.nonzero(X)
+    v = X[r, c].astype(np.int32)
+    to = (lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device))
+    Ud, pc_map = dense.stream_buffers(min(n, m) + bs, m, device)
+    r_d, ran = 0, []
+    for b0 in range(0, n, bs):
+        sel = (r >= b0) & (r < b0 + bs)
+        r_d, _, _, _, k = dense.blocked_finish_step(
+            f, (bs, m), 128, to(r[sel] - b0), to(c[sel]), to(v[sel]), Ud,
+            pc_map, r_d)
+        ran.append(k)
+    return Ud[:r_d].cpu(), pc_map[:r_d].cpu(), ran
+
+
+@pytest.mark.parametrize("case", ["echelonize", "dead_groups"])
+@pytest.mark.parametrize("p", [42013, 2147483629])
+def test_streaming_steps_replay_equal_eager_and_cpu(p, case, card,
+                                                    monkeypatch):
     # the streaming loop (FUSED_BUDGET = 0) on the card: a step's first
     # sight of its key (block shape, bucketed rank K) runs eagerly, the
     # second captures a CUDA graph, later ones replay it.  Three calls equal
-    # the CPU's LU, and the third, all replays, launches no K1 or K2 of its
-    # own
+    # the CPU's bit for bit (its panel groups of one panel against the
+    # card's of four), count the group bodies run as the CPU does with the
+    # card's groups, and the third, all replays, launches no K1 or K2 of its
+    # own.  "dead_groups" runs the steps alone over blocks whose groups
+    # are mostly dead (as in the fused finish's test): 3 bodies of 15
     monkeypatch.setattr(dense, "HOST_CUTOFF", 1)
     monkeypatch.setattr(dense, "FUSED_BUDGET", 0)
-    A = SparseGFp.rand(field(42013), 900, 700, 0.05,
-                       np.random.default_rng(21))
-    kw = dict(dense_block_size=128, device_sparsity_threshold=None)
-    cpu = lu_arrays(echelonize(A, device="cpu", **kw))
+    f = field(p)
+    if case == "echelonize":
+        A = SparseGFp.rand(f, 900, 700, 0.05, np.random.default_rng(21))
+        kw = dict(dense_block_size=128, device_sparsity_threshold=None)
+        cpu = lu_arrays(echelonize(A, device="cpu", **kw))
+
+        def grouped_counts():
+            echelonize(A, device="cpu", **kw)
+            return [last_phase_stats()[k]
+                    for k in ("rref_groups", "rref_groups_run")]
+        counts = _card_grouped(monkeypatch, grouped_counts)
+        assert 0 < counts[1] < counts[0]
+    else:
+        X = dead_group_matrix(f, 5, bs=128, gw=512, last=476)
+        cpu = _steps(f, X, "cpu")
+        ran = _card_grouped(monkeypatch, lambda: _steps(f, X, "cpu"))[2]
+        assert ran == [1, 0, 1, 0, 1]
     dense.release_finish_graphs()
     try:
         for call in range(3):
             before = cuda_panel.launches, cuda_matmul.launches
-            got = lu_arrays(echelonize(A, device=card, **kw))
+            if case == "echelonize":
+                got = lu_arrays(echelonize(A, device=card, **kw))
+                for k in cpu:
+                    assert np.array_equal(got[k], cpu[k]), (call, k)
+                assert [last_phase_stats()[k] for k in (
+                    "rref_groups", "rref_groups_run")] == counts, call
+            else:
+                got = _steps(f, X, card)
+                assert torch.equal(got[0], cpu[0]), call
+                assert torch.equal(got[1], cpu[1]), call
+                assert got[2] == ran, call
             after = cuda_panel.launches, cuda_matmul.launches
-            for k in cpu:
-                assert np.array_equal(got[k], cpu[k]), (call, k)
         assert dense._stream["graphs"]
         assert after == before
     finally:

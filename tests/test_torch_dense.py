@@ -101,8 +101,9 @@ def test_block_steps_match_blocked_finish_step(rng):
         b1 = min(n, b0 + bs)
         sel = (r_all >= b0) & (r_all < b1)
         ri, ci, vi = r_all[sel] - b0, c_all[sel], v_all[sel]
-        r_d, new_rank, prow_of, pcol_of = dense.blocked_finish_step(
+        r_d, new_rank, prow_of, pcol_of, ran = dense.blocked_finish_step(
             f, (b1 - b0, m), 32, ri, ci, vi, Ud, pc_map, r_d)
+        assert 0 <= ran <= dense.rref_groups(m, 32, "cpu")
         Ud_j, pc_j, rd_j, rank_j, prow_j, pcol_j = (
             ref_dense.blocked_finish_step(
                 f, (bs, m), 32, jnp.asarray(ri, jnp.int32),

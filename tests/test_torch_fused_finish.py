@@ -30,6 +30,7 @@ from spasm_tpu.ops import dense as ref_dense
 import spasm_tpu_torch as stt
 from spasm_tpu_torch import interop
 from spasm_tpu_torch.ops import dense
+from torch_dead_groups import GROUPS, RUNS, dead_group_matrix
 
 ref_ech = importlib.import_module("spasm_tpu.echelonize")
 port_ech = importlib.import_module("spasm_tpu_torch.echelonize")
@@ -185,6 +186,66 @@ def test_rref_inplace_dead_on_entry():
     assert int(rank) == 0 and torch.equal(R, X)
     assert (prow_of == -1).all() and (pcol_of == -1).all()
     assert not is_piv.any()
+
+
+# ---- the panel groups whose body an RREF runs (counted on the host here)
+
+
+def _dead_groups(p, seed):
+    # five blocks of 16 rows over groups of two 8-column panels
+    return dead_group_matrix(field(p), seed, bs=16, gw=16, last=12)
+
+
+@pytest.mark.parametrize("p", [42013, 2147483629])
+def test_rref_counts_the_groups_it_runs(p, monkeypatch):
+    # block 0 alone: a leading all-zero group, a live one, then the early
+    # exit before the last: one body of three, and the bits of one panel
+    # a group
+    f = field(p)
+    X = torch.from_numpy(_dead_groups(p, 1)[:16].astype(np.int32))
+    got = {}
+    for group in (1, 2):
+        monkeypatch.setattr(dense, "_FORCE_GROUP", group)
+        runs = torch.zeros((), dtype=torch.int64)
+        got[group] = dense.rref_inplace(f, X, 44, 8, runs=runs), int(runs)
+    assert dense.rref_groups(44, 8, "cpu") == GROUPS
+    assert got[2][1] == 1 and got[1][1] == 2      # panels 2 and 3 of 6
+    assert int(got[2][0][1]) == 16
+    for a, b in zip(got[1][0], got[2][0]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("p", [42013, 2147483629])
+def test_block_loops_count_the_groups_they_run(p, monkeypatch):
+    # the fused finish and the streaming steps over the five blocks: the
+    # dead groups (leading zeros, a dry block, a dependent block, the exit
+    # in the middle of a block) run no body, the last group of block 2
+    # does; each loop gives the bits of one panel a group
+    f = field(p)
+    X = _dead_groups(p, 2)
+    r, c, v = (torch.from_numpy(x) for x in _coo(X))
+    v = v.to(torch.int32)
+    fused, steps = {}, {}
+    for group in (1, 2):
+        monkeypatch.setattr(dense, "_FORCE_GROUP", group)
+        fused[group] = dense.fused_blocked_finish(f, (80, 128), 44, 16, 8,
+                                                  r, c, v)
+        Ud = torch.zeros((60, 44), dtype=torch.int32)
+        pc_map = torch.zeros(60, dtype=torch.int64)
+        r_d, ran = 0, []
+        for b0 in range(0, 80, 16):
+            sel = (r >= b0) & (r < b0 + 16)
+            r_d, _, _, _, k = dense.blocked_finish_step(
+                f, (16, 44), 8, r[sel] - b0, c[sel], v[sel], Ud, pc_map, r_d)
+            ran.append(k)
+        steps[group] = Ud[:r_d].clone(), ran
+    assert fused[2][3].tolist() == [16, 0, 12, 0, 16]
+    assert int(fused[2][6]) == RUNS and steps[2][1] == [1, 0, 1, 0, 1]
+    assert int(fused[1][6]) == sum(steps[1][1]) == 6
+    for a, b in zip(fused[1][:6], fused[2][:6]):
+        assert torch.equal(a, b)
+    assert torch.equal(steps[1][0], steps[2][0])
+    assert torch.equal(steps[2][0], fused[2][0][:44, :44])
 
 
 @pytest.mark.parametrize("run", [False, True])

@@ -29,9 +29,11 @@ TOP = ("convert_s", "pivot_s", "estimate_s", "schur_s", "finish_s",
 CHILDREN = ("finish_prep_s", "finish_wait_s", "finish_extract_s")
 # the counts beside the spans: pivot searches whose greedy completion ran
 # in C and in NumPy; Schur updates; the dense finish's rows, whether it
-# streamed, its blocks and the rows its tail check skipped
+# streamed, its blocks and the rows its tail check skipped; the panel
+# groups its RREFs reached and ran
 COUNTS = ("greedy_native", "greedy_numpy", "rounds", "finish_rows",
-          "finish_streamed", "finish_blocks", "finish_rows_skipped")
+          "finish_streamed", "finish_blocks", "finish_rows_skipped",
+          "rref_groups", "rref_groups_run")
 # span name -> the key it feeds
 SPAN_KEY = {"echelonize": "total_s", "convert": "convert_s",
             "pivots": "pivot_s", "estimate": "estimate_s",
@@ -80,6 +82,9 @@ def test_spans_cover_the_call(path, monkeypatch):
     assert lu.dense_piv_start is not None    # the dense finish ran
     assert set(st) == set(KEYS) | set(COUNTS)
     assert all(st[k] >= 0 for k in KEYS)
+    # the device block loop's RREFs: some groups run, none past the count
+    assert (0 < st["rref_groups_run"] <= st["rref_groups"]) == (
+        path != "host")
     for k in ("convert_s", "pivot_s", "estimate_s", "finish_wait_s",
               "finish_extract_s"):
         assert st[k] > 0, k
