@@ -3,18 +3,21 @@
 The round loop is the reference's, line for line, and runs on the port's
 copy of the reference's host code in ``._host`` (structural pivots,
 density estimate, mutual reduce, Schur updates, GPLU).  What changes is the blocked dense
-finish: it runs on torch tensors on ``device`` (the K1 / K2 CUDA kernels on
-a card), in the reference's two block loops.  Its main path is the fused
-finish (``ops/dense.fused_blocked_finish``): the whole loop with its
-control flow on the device, one CUDA graph on a card, then two reads.
+finish: it runs on torch tensors (the K1 / K2 CUDA kernels on a card), in
+the reference's two block loops.  Its main path is the fused finish
+(``ops/dense.fused_blocked_finish``) on ``device``: the whole loop with
+its control flow on the device, one CUDA graph on a card, then two reads.
 A host read inside the loop is not cheap on a card: each one drains the
 queue of small launches behind it, and the card then idles while the host
 issues the next ones (on an H100 the 8192^2 flagship's card was busy
 14-16% of a streaming finish that read back a value per panel; PERF.md).
 The streaming loop, which reads each block's rank, serves what needs it,
 as in the reference: low-rank mode, resume from a dense sidecar, and
-inputs over ``FUSED_BUDGET``.  A run with ``checkpoint=`` takes the fused
-finish where the reference does, and like it saves no dense sidecar there.
+inputs over ``FUSED_BUDGET``.  It also runs every finish under
+``ops/dense.host_cutoff_for(f)`` elements a block, on CPU tensors and one
+torch thread (the reference's NumPy host loop): those never take the fused
+finish and never reach the card.  A run with ``checkpoint=`` takes the fused finish where
+the reference does, and like it saves no dense sidecar there.
 
 The device is chosen by the caller: ``device="cuda"`` (the default) or
 ``device="cpu"`` by name.  Without a card, ``device="cuda"`` raises.
@@ -29,7 +32,7 @@ unavailable the sort-based waves (``ops/sparse_device.py``).
 row space, as in the reference (``solve.rref_of_U``).
 
 ``checkpoint=`` saves the round state after every round, and the
-streaming loops' block state into ``<checkpoint>.dense`` at most every
+streaming loop's block state into ``<checkpoint>.dense`` at most every
 ``DENSE_CKPT_INTERVAL_S`` seconds; ``resume=`` continues from such files
 (``checkpoint.py``, the reference's format: a checkpoint moves between
 the two packages).  A dense sidecar that does not load is logged and
@@ -44,6 +47,7 @@ replicated on every rank's device, and only rank 0 writes checkpoints.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -61,7 +65,7 @@ from ._host.elimination import (compute_levels, eliminate_against_reduced,
                                 mutual_reduce, wave_eliminate)
 from ._host.field import Field
 from ._host.pivots import find_structural_pivots
-from ._host.sputil import dense_matmul_host, mod_reduce
+from ._host.sputil import mod_reduce
 from ._host.utils.logging import log, push_verbose, wtime
 from .ops import dense as dense_ops
 from .ops import modmul, sparse_device, sparse_onepass
@@ -75,7 +79,7 @@ class EchelonizeOptions:
     """The reference's options struct (``spasm_tpu.echelonize
     .EchelonizeOptions``), with the same defaults, less
     ``low_rank_start_weight``: the port's tail check combines every
-    unprocessed row (``_randomized_tail_is_dependent``), so it has no
+    unprocessed row (``_tail_is_dependent``), so it has no
     sample weight to set."""
 
     enable_greedy_pivot_search: bool = True
@@ -198,17 +202,16 @@ def last_phase_stats() -> dict:
       up to the first upload;
     - finish_wait_s: ``finish.wait``, the dense finish's block loop: on the
       fused path the uploads and ``fused_blocked_finish`` up to the return
-      of the first readback; the whole streaming or host block loop
-      otherwise;
-    - finish_tail_s: ``finish.tail``, inside ``finish.wait``: the block
-      loops' tail checks (``_randomized_tail_is_dependent`` on the host,
-      ``_tail_is_dependent_on`` in the streaming loop);
+      of the first readback; the whole streaming loop otherwise;
+    - finish_tail_s: ``finish.tail``, inside ``finish.wait``: the
+      streaming loop's tail checks (``_tail_is_dependent``);
     - finish_extract_s: ``finish.extract``, the dense finish's pivot lists,
       U extraction (the fused path's second readback), and the host CSR,
       column remap and reduction of U;
     - assemble_s: ``assemble``, U, qinv, L and the canonical RREF;
     - device_s: no span; the dense finish's block loop on the device, ended
-      by a synchronize, plus, with device_sparse_min_nnz, the whole wall of
+      by a synchronize (0 for a finish under the cutoff, whose loop runs on
+      CPU tensors), plus, with device_sparse_min_nnz, the whole wall of
       each device sparse round, its host work included (the one-pass
       ``_stats`` device_s is the card's span).
 
@@ -230,18 +233,22 @@ def last_phase_stats() -> dict:
     - rounds: the Schur updates the call ran (the round loop's rounds that
       did not stop before their update);
     - finish_rows: the rows handed to the dense finish;
-    - finish_streamed: 1 where the dense finish took the streaming device
-      loop (``_blocked_device_loop`` without the fused finish);
-    - finish_blocks: the row blocks that loop eliminated
-      (``dense_ops.blocked_finish_step`` calls);
-    - finish_rows_skipped: the rows that a tail check of either block loop
+    - finish_streamed: 1 where a finish at or over the cutoff took the
+      streaming loop on ``device`` (``_streaming_loop``, not the fused
+      finish); 0 for a finish under the cutoff, which streams on CPU
+      tensors (the benchmark's chessboard test asserts 0 there);
+    - finish_blocks: the row blocks the streaming loop eliminated
+      (``dense_ops.blocked_finish_step`` calls), on the device or, under
+      the cutoff, on CPU tensors;
+    - finish_rows_skipped: the rows that the streaming loop's tail check
       certified as lying in the row space found so far, which no block
       then eliminated;
-    - rref_groups: the panel groups that the device block loop's RREFs
-      reach (``dense_ops.rref_groups`` a block, dead or alive);
+    - rref_groups: the panel groups that the dense finish's RREFs reach
+      (``dense_ops.rref_groups`` a block, dead or alive; on CPU tensors a
+      group is one panel);
     - rref_groups_run: those whose body ran, counted on the card by a
       replayed graph (one add of a group's predicate, read back with the
-      block's pivots) and on the host by an eager RREF."""
+      block's pivots) and otherwise by an eager RREF."""
     return dict(_LAST_STATS)
 
 
@@ -880,10 +887,15 @@ def _dense_finish_blocked(f: Field, S, row_origin, alive_cols, r0, opts,
     the remaining rows are processed in dense row blocks against an
     accumulated dense RREF kept in full mutual reduced form, so eliminating
     a block is ONE exact modular matmul and the block's rank comes from the
-    Jordan RREF.  Memory is O((block + rank_tail) * na).  Small problems
-    run on the host (NumPy int64); the others on ``device``, whose wall is
-    added to stats["device_s"].  In low-rank situations a randomized check
-    certifies the tail dependent and skips it (not with L).  Its spans
+    Jordan RREF.  Memory is O((block + rank_tail) * na).  Here alone is it
+    decided where the finish runs and which loop runs it: a finish of
+    ``host_cutoff_for(f)`` or more elements a block runs on ``device``,
+    whose wall is added to stats["device_s"], in ``_fused_device_finish``
+    where the reference takes its single-dispatch finish and in
+    ``_streaming_loop`` otherwise; a smaller one runs ``_streaming_loop``
+    on CPU tensors, on one torch thread (``_one_thread``).  In low-rank
+    mode the streaming loop's randomized check certifies the tail
+    dependent and skips it (not with L).  Its spans
     ``finish.prep``, ``finish.wait`` and ``finish.extract`` add to
     ``stats`` (``last_phase_stats``).
 
@@ -917,24 +929,32 @@ def _dense_finish_blocked(f: Field, S, row_origin, alive_cols, r0, opts,
                 log(f"[echelonize/dense] resuming at block offset "
                     f"{dense_resume['b0']}")
 
-        device_mode = bs * na >= dense_ops.host_cutoff_for(f)
+        # fused where the reference takes its single-dispatch finish, with
+        # or without a checkpoint; a finish under the cutoff streams on the
+        # CPU
+        device_sized = bs * na >= dense_ops.host_cutoff_for(f)
+        low_rank = _low_rank_possible(opts, n_s, na)
+        bs_b, na_b = dense_ops._bucket(bs), dense_ops._bucket(na)
+        fused = (device_sized and dense_resume is None and not low_rank
+                 and -(-n_s // bs_b) * bs_b * na_b <= dense_ops.FUSED_BUDGET)
+        stats["finish_streamed"] = int(device_sized and not fused)
         log(f"[echelonize/dense] processing {n_s} x {na} in blocks of {bs} "
-            f"({'device' if device_mode else 'host'})")
-        loop_kw = dict(ckpt_path=ckpt_path, resume_state=dense_resume,
-                       ckpt_meta=ckpt_meta)
-    if device_mode:
-        t_dev = time.perf_counter()
-        result = _blocked_device_loop(f, n_s, na, bs, rows_all, cols_all,
-                                      vals_all, opts, device, stats=stats,
-                                      **loop_kw)
+            f"({'device' if device_sized else 'host'})")
+    t_dev = time.perf_counter()
+    if fused:
+        result = _fused_device_finish(f, n_s, na, na_b, bs_b, rows_all,
+                                      cols_all, vals_all, device, stats=stats)
+    else:
+        with contextlib.nullcontext() if device_sized else _one_thread():
+            result = _streaming_loop(
+                f, n_s, na, bs, rows_all, cols_all, vals_all, opts,
+                device if device_sized else torch.device("cpu"), low_rank,
+                stats=stats, ckpt_path=ckpt_path, resume_state=dense_resume,
+                ckpt_meta=ckpt_meta)
+    if device_sized:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         stats["device_s"] += time.perf_counter() - t_dev
-    else:
-        with phase("finish.wait", stats):
-            result = _blocked_host_loop(f, n_s, na, bs, rows_all, cols_all,
-                                        vals_all, opts, stats=stats,
-                                        **loop_kw)
     if result is None:
         return None
     with phase("finish.extract", stats):
@@ -954,10 +974,18 @@ def _dense_finish_blocked(f: Field, S, row_origin, alive_cols, r0, opts,
         return mod_reduce(Usp, f), pcols.astype(np.int64), porig
 
 
-def _block_slice(rows_all, cols_all, vals_all, b0, b1):
-    lo = np.searchsorted(rows_all, b0)
-    hi = np.searchsorted(rows_all, b1)
-    return rows_all[lo:hi] - b0, cols_all[lo:hi], vals_all[lo:hi]
+@contextlib.contextmanager
+def _one_thread():
+    """One torch thread for a finish under the cutoff, as the NumPy loop it
+    replaced ran: its ops are too small to gain from a thread pool, and a
+    pool in each of several processes sharing the cores made them hundreds
+    of times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 def _save_dense_ckpt(ckpt_path, ckpt_meta, b0, Uh, piv_cols_loc,
@@ -973,69 +1001,12 @@ def _save_dense_ckpt(ckpt_path, ckpt_meta, b0, Uh, piv_cols_loc,
         f"({os.path.getsize(ckpt_path)} bytes, {wtime() - t0:.3f}s)")
 
 
-def _blocked_host_loop(f, n_s, na, bs, rows_all, cols_all, vals_all, opts,
-                       ckpt_path=None, resume_state=None, ckpt_meta=None,
-                       stats=None):
-    """The dense finish's block loop on the host (NumPy int64), for
-    finishes under the device cutoff.  ``stats`` takes the span
-    ``finish.tail`` and the count ``finish_rows_skipped``."""
-    stats = {} if stats is None else stats
-    stats.setdefault("finish_rows_skipped", 0)
-    Uh = np.zeros((0, na), np.int64)
-    piv_cols_loc: list[int] = []
-    piv_rows_glob: list[int] = []
-    dry_blocks = 0
-    b0 = 0
-    if resume_state is not None:
-        Uh = resume_state["Uh"]
-        piv_cols_loc = list(resume_state["piv_cols_loc"])
-        piv_rows_glob = list(resume_state["piv_rows_glob"])
-        dry_blocks = resume_state["dry_blocks"]
-        b0 = resume_state["b0"]
-    last_save = wtime()
-    while b0 < n_s:
-        b1 = min(n_s, b0 + bs)
-        ri, ci, vi = _block_slice(rows_all, cols_all, vals_all, b0, b1)
-        X = np.zeros((b1 - b0, na), np.int64)
-        X[ri, ci] = vi
-        r_d = len(piv_cols_loc)
-        if r_d:
-            coeff = X[:, np.array(piv_cols_loc, np.int64)]
-            X = f.normalize(X - dense_matmul_host(f, coeff, Uh))
-        out = dense_ops._host_rref(f, X, False)
-        new_rank = out["rank"]
-        if new_rank:
-            newU = out["R"][out["piv_rows"]].astype(np.int64)
-            if r_d:
-                co = Uh[:, out["piv_cols"]]
-                Uh = f.normalize(Uh - dense_matmul_host(f, co, newU))
-            Uh = np.vstack([Uh, newU])
-            piv_cols_loc.extend(out["piv_cols"].tolist())
-            piv_rows_glob.extend((b0 + out["piv_rows"]).tolist())
-            dry_blocks = 0
-        else:
-            dry_blocks += 1
-        b0 = b1
-        if (ckpt_path and b0 < n_s
-                and wtime() - last_save >= DENSE_CKPT_INTERVAL_S):
-            _save_dense_ckpt(ckpt_path, ckpt_meta, b0, Uh, piv_cols_loc,
-                             piv_rows_glob, dry_blocks)
-            last_save = wtime()
-        if (_low_rank_mode(opts, len(piv_cols_loc), b0, n_s)
-                and dry_blocks >= 1 and not opts.L and piv_cols_loc):
-            with phase("finish.tail", stats):
-                dependent = _randomized_tail_is_dependent(
-                    f, rows_all, cols_all, vals_all, b0, n_s, na, Uh,
-                    np.array(piv_cols_loc, np.int64))
-            if dependent:
-                log(f"[echelonize/dense] randomized check: remaining "
-                    f"{n_s - b0} rows dependent; skipping")
-                stats["finish_rows_skipped"] += n_s - b0
-                break
-    if not piv_cols_loc:
-        return None
-    return (sp.csr_matrix(Uh), np.array(piv_cols_loc, np.int64),
-            np.array(piv_rows_glob, np.int64))
+def _low_rank_possible(opts, n_s, na):
+    """Whether a finish of n_s rows over na columns is in low-rank mode
+    (enable_tall_and_skinny, tall and skinny, no L), where the tail check
+    may run: the fused finish is not taken there."""
+    return (opts.enable_tall_and_skinny and not opts.L
+            and n_s > opts.tall_and_skinny_ratio * na)
 
 
 def _low_rank_mode(opts, rank_so_far, rows_processed, n_s):
@@ -1047,41 +1018,25 @@ def _low_rank_mode(opts, rank_so_far, rows_processed, n_s):
     return rank_so_far < opts.low_rank_ratio * max(1, rows_processed)
 
 
-def _blocked_device_loop(f, n_s, na, bs, rows_all, cols_all, vals_all,
-                         opts, device: torch.device, ckpt_path=None,
-                         resume_state=None, ckpt_meta=None, stats=None):
-    """The dense finish's block loop on ``device``.
-
-    Where the reference takes its single-dispatch finish (not low-rank
-    mode, no resume, n_pad * na_b within FUSED_BUDGET), with or without a
-    checkpoint, this is ``_fused_device_finish``: blocks of
-    ``_bucket(bs)`` rows, no host read inside the loop.  Otherwise it is the
-    streaming loop: the COO uploaded once, then one
+def _streaming_loop(f, n_s, na, bs, rows_all, cols_all, vals_all, opts,
+                    device: torch.device, low_rank_possible: bool,
+                    ckpt_path=None, resume_state=None, ckpt_meta=None,
+                    stats=None):
+    """The dense finish's streaming block loop on ``device`` (a card, or
+    the CPU for a finish under the cutoff): the COO uploaded once, then one
     ``dense_ops.blocked_finish_step`` per row block of ``bs`` rows against
     the accumulated mutual RREF ``Ud`` (``dense_ops.stream_buffers``: the
     rank bound min(n_s, na) plus a block of rows), updated in place; on a
     card each step replays a CUDA graph.  Each block's rank is read back,
-    so the loop stops once every column holds a pivot, and in low-rank mode
-    a dry block triggers the randomized tail check, on the device
-    (``_tail_is_dependent_on``).  A sidecar save pulls ``Ud[:r_d]`` to the
-    host; a resume puts it back.  The fused finish writes no sidecar, as the reference's:
-    a resume from a checkpoint it left finds none and runs it again.
-    ``stats`` takes the spans ``finish.wait`` (the loop, up to the first
-    readback on the fused path), its child ``finish.tail`` (the tail
-    checks) and ``finish.extract``, the streaming loop's counts
-    ``finish_streamed``, ``finish_blocks`` and ``finish_rows_skipped``,
-    and both loops' ``rref_groups`` and ``rref_groups_run``."""
+    so the loop stops once every column holds a pivot, and where
+    ``low_rank_possible`` (the caller's ``_low_rank_possible``) a dry block
+    triggers the randomized tail check on ``device``
+    (``_tail_is_dependent``).  A sidecar save pulls
+    ``Ud[:r_d]`` to the host; a resume puts it back.  ``stats`` takes the
+    spans ``finish.wait`` (the loop), its child ``finish.tail`` (the tail
+    checks) and ``finish.extract``, and the counts ``finish_blocks``,
+    ``finish_rows_skipped``, ``rref_groups`` and ``rref_groups_run``."""
     stats = {} if stats is None else stats
-    bs_b = dense_ops._bucket(bs)
-    na_b = dense_ops._bucket(na)
-    low_rank_possible = (opts.enable_tall_and_skinny and not opts.L
-                         and n_s > opts.tall_and_skinny_ratio * na)
-    n_pad = -(-n_s // bs_b) * bs_b
-    if (not low_rank_possible and resume_state is None
-            and n_pad * na_b <= dense_ops.FUSED_BUDGET):
-        return _fused_device_finish(f, n_s, na, na_b, bs_b, rows_all,
-                                    cols_all, vals_all, device, stats=stats)
-    stats["finish_streamed"] = 1
     for k in ("finish_blocks", "finish_rows_skipped", "rref_groups",
               "rref_groups_run"):
         stats.setdefault(k, 0)
@@ -1140,7 +1095,7 @@ def _blocked_device_loop(f, n_s, na, bs, rows_all, cols_all, vals_all,
             if (low_rank_possible and dry_blocks >= 1 and piv_cols_loc
                     and _low_rank_mode(opts, len(piv_cols_loc), b0, n_s)):
                 with phase("finish.tail", stats):
-                    dependent = _tail_is_dependent_on(
+                    dependent = _tail_is_dependent(
                         f, *(x[starts[b0]:] for x in coo), b0, n_s, na,
                         Ud[:r_d], pc_map[:r_d])
                 if dependent:
@@ -1164,7 +1119,9 @@ def _fused_device_finish(f, n_s, na, na_b, bs, rows_all, cols_all,
     panel groups run) in one copy, and the sparse extraction of the
     accumulated U.  ``stats`` takes the spans ``finish.wait`` (the uploads
     to the first read's return) and ``finish.extract`` (the rest), and the
-    counts ``rref_groups`` and ``rref_groups_run``."""
+    counts ``rref_groups`` and ``rref_groups_run``.  It writes no sidecar,
+    as the reference's: a resume from a checkpoint it left finds none and
+    runs it again."""
     stats = {} if stats is None else stats
     n_pad = -(-n_s // bs) * bs
     nb = n_pad // bs
@@ -1208,57 +1165,6 @@ def _tail_samples(p: int) -> int:
     return math.ceil(64 / math.log2(p))
 
 
-def _combine_rows(f: Field, C: np.ndarray, T: sp.csr_matrix) -> np.ndarray:
-    """C @ T mod p, balanced, for C (s, k) dense and T (k, na) CSR, both
-    balanced: one sparse product where k terms of (p/2)**2 stay below
-    2**62, otherwise 16-bit limbs of C over chunks of 2**15 rows of T
-    (2**15 terms of 2**16 * 2**31)."""
-    half = max(1, f.halfp)
-    k = T.shape[0]
-    if half * half * max(1, k) < 1 << 62:
-        return f.normalize(np.asarray(T.T @ C.T).T)
-    Cu = f.to_unsigned(C)
-    acc = np.zeros((C.shape[0], T.shape[1]), np.int64)
-    step = 1 << 15
-    for r0 in range(0, k, step):
-        Tc = T[r0:r0 + step].T
-        Cc = Cu[:, r0:r0 + step]
-        hi = f.normalize(np.asarray(Tc @ (Cc >> 16).T).T)
-        lo = f.normalize(np.asarray(Tc @ (Cc & 0xFFFF).T).T)
-        acc = f.normalize(acc + hi * 65536 + lo)
-    return acc
-
-
-def _randomized_tail_is_dependent(f, rows_all, cols_all, vals_all, b0, n_s,
-                                  na, U, piv_cols):
-    """Whether the finish's unprocessed rows b0..n_s-1 (numpy COO sorted
-    by row) lie in the row space of the dense mutual RREF ``U`` with pivot
-    columns ``piv_cols``: numpy arrays (the host block loop), or tensors,
-    where the tail goes to U's device and ``_tail_is_dependent_on`` checks
-    it.  Each of ``_tail_samples(p)`` samples combines every tail row with
-    its own uniform coefficient (fixed seed), all in one sparse product.
-    A dependent tail reduces to zero in every sample; a tail outside the
-    row space makes a sample's coefficients a nonzero linear form, zero
-    with probability at most 1/p, so a wrong True has probability at most
-    2**-64.  (The reference's samples combine 16 rows each: where few tail
-    rows lie outside the row space, every sample can miss them.)"""
-    lo = np.searchsorted(rows_all, b0)
-    if isinstance(U, torch.Tensor):
-        return _tail_is_dependent_on(
-            f, *(torch.from_numpy(np.ascontiguousarray(x[lo:], dt)).to(
-                U.device) for x, dt in ((rows_all, np.int64),
-                                        (cols_all, np.int64),
-                                        (vals_all, np.int32))),
-            b0, n_s, na, U, piv_cols)
-    rng = np.random.default_rng(12345)
-    indptr = np.searchsorted(rows_all, np.arange(b0, n_s + 1)) - lo
-    T = sp.csr_matrix((vals_all[lo:], cols_all[lo:], indptr),
-                      shape=(n_s - b0, na))
-    X = _combine_rows(f, f.rand((_tail_samples(f.p), n_s - b0), rng), T)
-    res = f.normalize(X - dense_matmul_host(f, X[:, piv_cols], U))
-    return not bool(res.any())
-
-
 # tail entries a sample product gathers at a time (int64 temporaries of
 # samples x TAIL_CHUNK)
 TAIL_CHUNK = 1 << 22
@@ -1266,11 +1172,11 @@ TAIL_CHUNK = 1 << 22
 
 def _combine_rows_on(f: Field, C: torch.Tensor, rows, cols, vals,
                      na: int) -> torch.Tensor:
-    """``_combine_rows`` on C's device: C @ T mod p, balanced int32, for C
-    (s, k) balanced int64 and T (k, na) as COO (rows, cols int64, vals
-    balanced int32).  One gather, product and scatter-add per TAIL_CHUNK
-    entries, exact in int64: each term is at most (p/2)**2 < 2**62 and is
-    reduced mod p before it is summed, and the sums after each chunk."""
+    """C @ T mod p on C's device, balanced int32, for C (s, k) balanced
+    int64 and T (k, na) as COO (rows, cols int64, vals balanced int32).
+    One gather, product and scatter-add per TAIL_CHUNK entries, exact in
+    int64: each term is at most (p/2)**2 < 2**62 and is reduced mod p
+    before it is summed, and the sums after each chunk."""
     X = torch.zeros((C.shape[0], na), dtype=torch.int64, device=C.device)
     for i in range(0, rows.numel(), TAIL_CHUNK):
         j = i + TAIL_CHUNK
@@ -1280,12 +1186,20 @@ def _combine_rows_on(f: Field, C: torch.Tensor, rows, cols, vals,
     return modmul.normalize(f, X)
 
 
-def _tail_is_dependent_on(f, rows, cols, vals, b0, n_s, na, U, piv_cols):
-    """``_randomized_tail_is_dependent`` on U's device: rows, cols, vals
-    the COO of rows b0..n_s-1 (int64, int64, balanced int32 tensors there),
-    U and piv_cols tensors.  The coefficients are drawn there from a fixed
-    seed; the samples (``_combine_rows_on``) are reduced against U by one
-    ``modmatmul``, and one value is read."""
+def _tail_is_dependent(f, rows, cols, vals, b0, n_s, na, U, piv_cols):
+    """Whether the finish's unprocessed rows b0..n_s-1 lie in the row space
+    of the dense mutual RREF ``U`` with pivot columns ``piv_cols``: rows,
+    cols, vals the COO of those rows (int64, int64, balanced int32 tensors
+    on U's device), U and piv_cols tensors.  Each of ``_tail_samples(p)``
+    samples combines every tail row with its own uniform coefficient,
+    drawn on U's device from a fixed seed, all in one sparse product
+    (``_combine_rows_on``); the samples are reduced against U by one
+    ``modmatmul``, and one value is read.  A dependent tail reduces to zero
+    in every sample; a tail outside the row space makes a sample's
+    coefficients a nonzero linear form, zero with probability at most 1/p,
+    so a wrong True has probability at most 2**-64.  (The reference's
+    samples combine 16 rows each: where few tail rows lie outside the row
+    space, every sample can miss them.)"""
     dev = U.device
     p = f.p
     gen = torch.Generator(device=dev)

@@ -74,7 +74,7 @@ def _panel_eliminate(f, P: torch.Tensor, is_piv_row: torch.Tensor, j0: int,
     for jj in range(c):
         if j0 + jj >= npivcols:
             break
-        col = P[:, jj].clone()
+        col = P[:, jj]
         cand = torch.nonzero((col != 0) & ~is_piv)
         if cand.numel() == 0:
             continue
@@ -82,10 +82,15 @@ def _panel_eliminate(f, P: torch.Tensor, is_piv_row: torch.Tensor, j0: int,
         pinv = _balanced(pow(int(col[pr]) % f.p, f.p - 2, f.p), f.p)
         beta = modmul.mul(f, modmul.neg(f, col), pinv)
         beta[pr] = _balanced(pinv - 1, f.p)
-        g_row = G[pr].clone()
+        # only the rows with beta != 0 change; a non-pivot row is zero left
+        # of jj, and G's slots past kk are unused: the update leaves those
+        # columns as they are
+        rows = torch.nonzero(beta).view(-1)
+        b = beta[rows, None]
+        g_row = G[pr, :kk + 1].clone()
         g_row[kk] += 1
-        P = modmul.add(f, P, modmul.mul(f, beta[:, None], P[pr][None, :]))
-        G = modmul.add(f, G, modmul.mul(f, beta[:, None], g_row[None, :]))
+        P[rows, jj:] = modmul.axpy(f, b, P[pr, jj:], P[rows, jj:])
+        G[rows, :kk + 1] = modmul.axpy(f, b, g_row, G[rows, :kk + 1])
         is_piv[pr] = True
         prow[kk] = pr
         pcol[kk] = jj
@@ -371,7 +376,8 @@ def _rref(f, X: torch.Tensor, npivcols: int, panel: int,
     return R[:, :m], rank, prow_of, pcol_of, is_piv, T
 
 
-# below this element count, the host NumPy elimination is used
+# below this element count ``rref`` runs the host NumPy elimination, and a
+# dense finish of smaller blocks runs its streaming loop on CPU tensors
 HOST_CUTOFF = 1 << 20
 # large primes make the host int64 product chunk to a few columns, so the
 # crossover drops (same constants as the reference)
@@ -379,8 +385,9 @@ HOST_CUTOFF_BIGP = 1 << 16
 
 
 def host_cutoff_for(f) -> int:
-    """Element-count crossover between the host NumPy elimination and the
-    tensor path, as a function of the prime (as the reference)."""
+    """Element-count crossover between the host and the tensor path on
+    the device (``rref``; a dense finish's block), as a function of the
+    prime (as the reference)."""
     half = max(1, f.p // 2)
     safe_k = max(1, (1 << 62) // (half * half))
     return HOST_CUTOFF if safe_k >= 256 else HOST_CUTOFF_BIGP
@@ -534,24 +541,21 @@ def blocked_finish_step(f, shape, panel: int, rows, cols, vals,
     int64 are updated in place (the reference donates them); cap must hold
     r_d plus the block's rows: the finish's rank bound min(rows, cols) plus
     a block always does (``stream_buffers``).  Returns (r_d', new_rank,
-    prow_of, pcol_of, groups_run), the last the panel groups whose body
-    the step's RREF ran (of ``rref_groups(shape[1], panel, device)``).
+    prow_of, pcol_of, groups_run) (``_read_step``): prow_of / pcol_of CPU
+    tensors, the last the panel groups whose body the step's RREF ran (of
+    ``rref_groups(shape[1], panel, device)``).  One read a step, the
+    block's rank and pivots.
 
     On a card, with the buffers of ``stream_buffers``, the step is replayed
-    as a CUDA graph (``_step_on_card``): one read a step, the block's rank
-    and pivots."""
+    as a CUDA graph (``_step_on_card``)."""
     if Ud.is_cuda and _stream.get("Ud") is Ud:
         with torch.cuda.device(Ud.device):
             return _step_on_card(f, shape, panel, rows, cols, vals, Ud,
                                  pc_map, r_d)
     X = densify_coo(shape, rows, cols, vals, Ud.device)
     rd = torch.full((), r_d, dtype=torch.int64, device=Ud.device)
-    runs = torch.zeros((), dtype=torch.int64, device=Ud.device)
-    new_rank, prow_of, pcol_of, _ = _block_body(f, X, Ud, pc_map, rd, r_d,
-                                                shape[1], panel, runs)
-    # the streaming loop reads each block's rank
-    new_rank, ran = torch.stack([new_rank.long(), runs]).tolist()
-    return r_d + new_rank, new_rank, prow_of, pcol_of, ran
+    return _read_step(_step_meta(f, X, Ud, pc_map, rd, r_d, shape[1], panel),
+                      r_d, shape[0])
 
 
 # The streaming finish's state on a card: its accumulated panel Ud and
@@ -618,10 +622,7 @@ def _step_on_card(f, shape, panel, rows, cols, vals, Ud, pc_map, r_d):
         entry["rd"].fill_(r_d)
         entry["graph"].replay()
         meta = entry["meta"]
-    meta = meta.cpu()
-    n = shape[0]
-    new_rank = int(meta[0])
-    return r_d + new_rank, new_rank, meta[2:2 + n], meta[2 + n:], int(meta[1])
+    return _read_step(meta, r_d, shape[0])
 
 
 def _step_meta(f, X, Ud, pc_map, rd, K, npiv, panel):
@@ -632,6 +633,15 @@ def _step_meta(f, X, Ud, pc_map, rd, K, npiv, panel):
                                                 npiv, panel, runs)
     return torch.cat([new_rank.view(1).long(), runs.view(1), prow_of,
                       pcol_of])
+
+
+def _read_step(meta, r_d: int, n: int):
+    """The host's one read of a step of ``n`` block rows, its meta of
+    ``_step_meta``: (r_d', new_rank, prow_of, pcol_of, groups_run), the
+    pivot lists as CPU tensors."""
+    meta = meta.cpu()
+    new_rank = int(meta[0])
+    return r_d + new_rank, new_rank, meta[2:2 + n], meta[2 + n:], int(meta[1])
 
 
 # element-count cap for the fused finish: the densified matrix (n_pad x na)
@@ -827,7 +837,8 @@ def fused_blocked_finish(f, shape, npiv: int, bs: int, panel: int, rows,
     eliminated against the accumulated mutual-RREF panel, Jordan-RREF'd,
     back-eliminated into the panel and appended.  Same math as
     ``blocked_finish_step`` (the streaming loop, kept for low-rank mode,
-    resume from a dense sidecar and inputs over FUSED_BUDGET).
+    resume from a dense sidecar, inputs over FUSED_BUDGET and finishes
+    under the host cutoff).
 
     shape = (n_pad, na) with n_pad a multiple of bs; npiv <= na is the true
     column count: only those columns hold pivots, and once they all do the

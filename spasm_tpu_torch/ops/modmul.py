@@ -27,8 +27,9 @@ def check_device_prime(f) -> None:
 def normalize(f, x: torch.Tensor) -> torch.Tensor:
     """Exact integers (any integer dtype) -> balanced int32."""
     p = f.p
-    r = torch.remainder(x.to(torch.int64), p)          # [0, p)
-    r = torch.where(r > p // 2, r - p, r)
+    lo = p // 2 - p + 1                                 # the least balanced value
+    r = torch.remainder(x.to(torch.int64) - lo, p)     # [0, p)
+    r += lo
     return r.to(torch.int32)
 
 
@@ -55,8 +56,8 @@ def mul(f, a, b):
 def axpy(f, a, x, y):
     """a*x + y with one reduction: |a*x| < 2**62 and |y| < 2**31."""
     check_device_prime(f)
-    return normalize(f, a.to(torch.int64) * x.to(torch.int64)
-                     + y.to(torch.int64))
+    return normalize(f, torch.addcmul(y.to(torch.int64), a.to(torch.int64),
+                                      x.to(torch.int64)))
 
 
 def inv_scalar(f, x: torch.Tensor) -> torch.Tensor:

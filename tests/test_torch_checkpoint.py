@@ -108,14 +108,15 @@ def _crash_on_call(monkeypatch, module, name, n):
 
 
 def test_dense_finish_checkpoint_resume(rng, tmp_path, monkeypatch):
-    """The host block loop: killed mid-finish, resumed from the sidecar
-    without redoing the finished blocks, the same LU."""
+    """A finish under the cutoff (the streaming loop on CPU tensors):
+    killed mid-finish, resumed from the sidecar without redoing the
+    finished blocks, the same LU."""
     A = SparseGFp.rand(F, 500, 400, 0.3, rng)   # dense: finish at round 0
     opts = dict(dense_block_size=64)
     want = st.echelonize(A, **opts)
     path = str(tmp_path / "dense.npz")
     monkeypatch.setattr(port_ech, "DENSE_CKPT_INTERVAL_S", 0.0)
-    real = _crash_on_call(monkeypatch, port_dense, "_host_rref", 4)
+    real = _crash_on_call(monkeypatch, port_dense, "blocked_finish_step", 4)
     with pytest.raises(RuntimeError, match="simulated preemption"):
         port(A, checkpoint=path, **opts)
     side = port_ckpt.load_dense_state(path + ".dense")
@@ -126,14 +127,14 @@ def test_dense_finish_checkpoint_resume(rng, tmp_path, monkeypatch):
         calls["n"] += 1
         return real(*a, **kw)
 
-    monkeypatch.setattr(port_dense, "_host_rref", counting)
+    monkeypatch.setattr(port_dense, "blocked_finish_step", counting)
     assert_same_lu(port(A, resume=path, **opts), want)
     assert calls["n"] == 1          # only the last block was redone
     assert not os.path.exists(path + ".dense")
 
 
 def _device_loop(monkeypatch):
-    """Take the streaming device block loop on CPU tensors at small sizes
+    """Take the streaming loop of a device-sized finish at small sizes
     (the reference's lever: FUSED_BUDGET = 0 stands for a finish over the
     budget; within it a checkpointed run takes the fused finish), saving
     the sidecar after every block."""
@@ -313,7 +314,7 @@ def test_both_sidecars_deleted_when_checkpoint_differs(rng, tmp_path,
     opts = dict(dense_block_size=64)
     old, new = str(tmp_path / "old.npz"), str(tmp_path / "new.npz")
     monkeypatch.setattr(port_ech, "DENSE_CKPT_INTERVAL_S", 0.0)
-    real = _crash_on_call(monkeypatch, port_dense, "_host_rref", 3)
+    real = _crash_on_call(monkeypatch, port_dense, "blocked_finish_step", 3)
     with pytest.raises(RuntimeError, match="simulated preemption"):
         port(A, checkpoint=old, **opts)
     assert port_ckpt.load_dense_state(old + ".dense")["b0"] == 256
@@ -324,7 +325,7 @@ def test_both_sidecars_deleted_when_checkpoint_differs(rng, tmp_path,
         saved.append((path, kw["b0"]))
         return real_save(path, **kw)
 
-    monkeypatch.setattr(port_dense, "_host_rref", real)
+    monkeypatch.setattr(port_dense, "blocked_finish_step", real)
     monkeypatch.setattr(port_ckpt, "save_dense_state", recording)
     got = port(A, checkpoint=new, resume=old, **opts)
     assert saved == [(new + ".dense", 384)]

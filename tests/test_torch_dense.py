@@ -13,7 +13,7 @@ import torch
 from spasm_tpu.field import field
 from spasm_tpu.ops import dense as ref_dense
 
-from spasm_tpu_torch.echelonize import _blocked_device_loop
+from spasm_tpu_torch.echelonize import _low_rank_possible, _streaming_loop
 from spasm_tpu_torch.ops import dense
 
 
@@ -125,10 +125,9 @@ def test_block_steps_match_blocked_finish_step(rng):
 
 
 def test_block_loop_matches_fused_blocked_finish(rng, monkeypatch):
-    # the port's streaming block loop (FUSED_BUDGET = 0 keeps the loop off
-    # the fused finish) against the reference's single-dispatch finish,
-    # with its dead-row chunking crossed (KC = 64 < rank)
-    monkeypatch.setattr(dense, "FUSED_BUDGET", 0)
+    # the port's streaming block loop against the reference's
+    # single-dispatch finish, with its dead-row chunking crossed (KC = 64 <
+    # rank)
     f = field(42013)
     n, m, bs = 240, 160, 64
     X = f.rand((n, m), rng).astype(np.int64)
@@ -143,8 +142,9 @@ def test_block_loop_matches_fused_blocked_finish(rng, monkeypatch):
         L = False
         tall_and_skinny_ratio = 5.0
 
-    Usp, piv_cols, piv_rows = _blocked_device_loop(
-        f, n, m, bs, r_all, c_all, v_all, Opts, torch.device("cpu"))
+    Usp, piv_cols, piv_rows = _streaming_loop(
+        f, n, m, bs, r_all, c_all, v_all, Opts, torch.device("cpu"),
+        _low_rank_possible(Opts, n, m))
     monkeypatch.setattr(ref_dense, "_FUSED_KC", 64)
     n_pad = -(-n // bs) * bs
     Ud, pc_map, r_d, ranks, prows, pcols = ref_dense.fused_blocked_finish(

@@ -125,20 +125,26 @@ def test_device_mode_finish_chunked_back_elimination(rng, monkeypatch):
     assert calls.count(1) >= 128
 
 
+def _tall_low_rank(p, rng):
+    """A 900 x 60 product of random 900 x 20 and 20 x 60 factors: rank at
+    most 20."""
+    import scipy.sparse as sp
+
+    X = sp.random(900, 20, density=0.3, random_state=rng,
+                  data_rvs=lambda k: rng.integers(1, 1000, k), dtype=np.int64)
+    Y = sp.random(20, 60, density=0.3, random_state=rng,
+                  data_rvs=lambda k: rng.integers(1, 1000, k), dtype=np.int64)
+    return SparseGFp.from_scipy((X @ Y).tocsr(), p)
+
+
 def test_device_mode_low_rank_tail(rng, monkeypatch):
     # tall and low-rank: the block loop with per-block rank readbacks and
     # the randomized tail check.  The reference reads each block's rank
     # one block late (to hide link latency), so it runs its check after
     # one more block than the port; the LU is the same.
-    import scipy.sparse as sp
-
     monkeypatch.setattr(ref_dense, "HOST_CUTOFF", 1)
     monkeypatch.setattr(port_dense, "HOST_CUTOFF", 1)
-    X = sp.random(900, 20, density=0.3, random_state=rng,
-                  data_rvs=lambda k: rng.integers(1, 1000, k), dtype=np.int64)
-    Y = sp.random(20, 60, density=0.3, random_state=rng,
-                  data_rvs=lambda k: rng.integers(1, 1000, k), dtype=np.int64)
-    A = SparseGFp.from_scipy((X @ Y).tocsr(), F.p)
+    A = _tall_low_rank(F.p, rng)
     got, ref_lines, port_lines = run_both(
         A, logs=True, same_logs=False, max_round=0, dense_block_size=128)
 
@@ -163,12 +169,74 @@ def test_L_factor(case, rng):
 @pytest.mark.parametrize("p", [2147483629, 4294967291])
 @pytest.mark.parametrize("case", ["boundary", "random"])
 def test_large_primes(p, case, rng):
-    # tier B and tier C primes (below the big-prime host cutoff, so the
-    # dense finish stays on the host NumPy elimination in both packages)
+    # tier B and tier C primes, below the big-prime host cutoff: the
+    # reference's dense finish runs its NumPy host loop, the port's its
+    # streaming loop on CPU tensors
     A = (fx.simplex_boundary(9, 3, p) if case == "boundary"
          else SparseGFp.rand(field(p), 150, 120, 0.05, rng))
     run_both(A)
     run_both(A, L=True)
+
+
+def _host_sized_case(p, shape, rng):
+    f = field(p)
+    if shape == "square":     # full rank, dense: the finish at round 0
+        return SparseGFp.rand(f, 200, 200, 0.3, rng), {}
+    if shape == "L":
+        return SparseGFp.rand(f, 200, 150, 0.3, rng), dict(L=True)
+    # the tail check skips the rows after the first dry block
+    return _tall_low_rank(p, rng), dict(max_round=0, dense_block_size=128)
+
+
+@pytest.mark.parametrize("shape", ["square", "tall_low_rank", "L"])
+@pytest.mark.parametrize("p", [42013, 2147483629, 4294967291])
+def test_host_sized_finish_matches_reference(p, shape, rng):
+    # a dense finish under host_cutoff_for(f) elements a block, at the
+    # default cutoffs: the port's streaming loop on CPU tensors against the
+    # reference's NumPy host loop, the same LU; it counts its blocks, and
+    # no device time
+    A, kw = _host_sized_case(p, shape, rng)
+    got, _, lines = run_both(A, logs=True, **kw)
+    stats = stt.last_phase_stats()
+    assert any(s.endswith("(host)") for s in lines)
+    assert stats["finish_blocks"] >= 1 and stats["rref_groups_run"] >= 1
+    assert stats["finish_streamed"] == 0 and stats["device_s"] == 0
+    if shape == "square":
+        assert got["r"] == 200
+    if shape == "tall_low_rank":
+        assert got["r"] <= 20 and stats["finish_rows_skipped"] > 0
+    if shape == "L":
+        assert "L_data" in got
+
+
+@pytest.mark.parametrize("crash", [False, True])
+def test_host_sized_finish_runs_on_one_thread(crash, rng, monkeypatch):
+    # the streaming loop on CPU tensors runs on one torch thread, and the
+    # caller's thread count comes back after it, also when a step raises
+    real = port_dense.blocked_finish_step
+    seen = []
+
+    def step(*a, **kw):
+        seen.append(torch.get_num_threads())
+        if crash and len(seen) == 2:
+            raise RuntimeError("simulated fault")
+        return real(*a, **kw)
+
+    monkeypatch.setattr(port_dense, "blocked_finish_step", step)
+    A = stt.SparseGFp.rand(stt.field(F.p), 300, 200, 0.3, rng)
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        if crash:
+            with pytest.raises(RuntimeError, match="simulated fault"):
+                stt.echelonize(A, device="cpu", dense_block_size=128)
+        else:
+            assert stt.echelonize(A, device="cpu",
+                                  dense_block_size=128).rank == 200
+        assert torch.get_num_threads() == 2
+    finally:
+        torch.set_num_threads(n)
+    assert seen == [1, 1]
 
 
 def test_rank_and_interop(rng):

@@ -2,7 +2,7 @@
 keys of ``last_phase_stats()`` they feed, the ``spasm.*`` events they put
 into a torch.profiler trace, and what they cost with no profiler running.
 On the CPU at test sizes; ``ops.dense.HOST_CUTOFF`` lowered sends the
-dense finish to the device loops, as on a card."""
+dense finish to the device-sized loops, as on a card."""
 
 import gc
 import json
@@ -45,9 +45,10 @@ SPAN_KEY = {"echelonize": "total_s", "convert": "convert_s",
 # the spans a call enters only with Schur rounds or a tail check
 ROUND_AND_TAIL = {"schur", "schur.reduce", "schur.eliminate", "finish.tail"}
 # the dense finish's paths: the fused finish after a dense switch at round
-# 0 (the card's main path), the streaming loop, the host loop, a run whose
-# Schur rounds come before the fused finish, and a boundary whose two Schur
-# rounds come before the streaming loop and its tail check
+# 0 (the card's main path), the streaming loop, the streaming loop of a
+# finish under the cutoff (on CPU tensors, no device time), a run whose
+# Schur rounds come before a streaming finish, and a boundary whose two
+# Schur rounds come before the streaming loop and its tail check
 PATHS = ("fused", "streaming", "host", "rounds", "boundary")
 
 
@@ -82,9 +83,14 @@ def test_spans_cover_the_call(path, monkeypatch):
     assert lu.dense_piv_start is not None    # the dense finish ran
     assert set(st) == set(KEYS) | set(COUNTS)
     assert all(st[k] >= 0 for k in KEYS)
-    # the device block loop's RREFs: some groups run, none past the count
-    assert (0 < st["rref_groups_run"] <= st["rref_groups"]) == (
-        path != "host")
+    # the finish's RREFs (on CPU tensors for the host-sized finish too):
+    # some groups run, none past the count
+    assert 0 < st["rref_groups_run"] <= st["rref_groups"]
+    # the streaming loop counts its blocks at every size; finish_streamed
+    # says it ran a finish on the device
+    streams = path != "fused"
+    assert (st["finish_blocks"] > 0) == streams
+    assert st["finish_streamed"] == int(streams and path != "host")
     for k in ("convert_s", "pivot_s", "estimate_s", "finish_wait_s",
               "finish_extract_s"):
         assert st[k] > 0, k

@@ -1,5 +1,5 @@
-"""The dense finish's tail check (``echelonize._randomized_tail_is_dependent``)
-on the CPU: a tail with a single row outside the row space found so far is
+"""The dense finish's tail check (``echelonize._tail_is_dependent``) on CPU
+tensors: a tail with a single row outside the row space found so far is
 never skipped, a dependent tail is, the sparse product behind the samples
 is exact at every prime tier, and the boundary on which the earlier check
 (16 rows a sample) lost rank keeps it."""
@@ -48,24 +48,29 @@ def _finish_coo(f, rng, head, n_tail, outside, r=60, na=240):
             f.normalize(C.data)), U, piv
 
 
-@pytest.mark.parametrize("where", ["host", "tensor"])
+def _check(f, coo, head, n_s, U, piv):
+    """``_tail_is_dependent`` on CPU tensors of the tail's COO (the rows
+    from ``head`` on), as the streaming loop calls it."""
+    rows, cols, vals = coo
+    lo = np.searchsorted(rows, head)
+    return ech._tail_is_dependent(
+        f, torch.from_numpy(rows[lo:]), torch.from_numpy(cols[lo:]),
+        torch.from_numpy(vals[lo:].astype(np.int32)), head, n_s, U.shape[1],
+        torch.from_numpy(U.astype(np.int32)), torch.from_numpy(piv))
+
+
 @pytest.mark.parametrize("p", PRIMES)
 @pytest.mark.parametrize("outside", [True, False])
-def test_one_row_outside_the_row_space_is_caught(p, outside, where):
+def test_one_row_outside_the_row_space_is_caught(p, outside):
     """10,000 tail rows in the row space of U and, with ``outside``, one
     more row outside it: the check says dependent exactly when there is
-    none, with U on the host (the host block loop) or as tensors (the
-    streaming loop's).  (Samples of 16 rows each, as the reference's, miss
-    the one row in 8 samples with probability about 0.99.)"""
+    none.  (Samples of 16 rows each, as the reference's, miss the one row
+    in 8 samples with probability about 0.99.)"""
     f = field(p)
     rng = np.random.default_rng(p % 1000 + outside)
     head, n_tail = 500, 10_000 + outside
-    (rows, cols, vals), U, piv = _finish_coo(f, rng, head, n_tail, outside)
-    if where == "tensor":
-        U, piv = torch.from_numpy(U.astype(np.int32)), torch.from_numpy(piv)
-    got = ech._randomized_tail_is_dependent(
-        f, rows, cols, vals, head, head + n_tail, U.shape[1], U, piv)
-    assert got is (not outside)
+    coo, U, piv = _finish_coo(f, rng, head, n_tail, outside)
+    assert _check(f, coo, head, head + n_tail, U, piv) is (not outside)
 
 
 @pytest.mark.parametrize("p", PRIMES)
@@ -77,27 +82,10 @@ def test_samples_reach_the_bound(p):
 
 
 @pytest.mark.parametrize("p", PRIMES)
-def test_sample_product_is_exact(p):
-    """``_combine_rows`` against big integers, at the extreme balanced
-    values and with more than 2**15 rows, so that the large primes take
-    the limb path over more than one chunk."""
-    f = field(p)
-    rng = np.random.default_rng(5)
-    k, na, s = (1 << 15) + 777, 24, ech._tail_samples(p)
-    ext = np.array([f.halfp, f.mhalfp], np.int64)
-    C = ext[rng.integers(0, 2, (s, k))]
-    T = sp.random(k, na, density=0.5, format="csr", random_state=7)
-    T.data = ext[rng.integers(0, 2, T.nnz)]
-    want = (C.astype(object) @ T.toarray().astype(object)) % p
-    got = ech._combine_rows(f, C, T)
-    np.testing.assert_array_equal(f.to_unsigned(got), want.astype(np.int64))
-
-
-@pytest.mark.parametrize("p", PRIMES)
 def test_device_sample_product_is_exact(p, monkeypatch):
-    """``_combine_rows_on`` (the streaming loop's samples, on a tensor
-    device) against big integers at the extreme balanced values, over
-    chunks of 1000 entries."""
+    """``_combine_rows_on`` (the tail check's samples) against big
+    integers at the extreme balanced values, over chunks of 1000
+    entries."""
     monkeypatch.setattr(ech, "TAIL_CHUNK", 1000)
     f = field(p)
     rng = np.random.default_rng(6)
@@ -117,17 +105,14 @@ def test_device_sample_product_is_exact(p, monkeypatch):
 
 @pytest.mark.parametrize("outside", [True, False])
 def test_chunked_device_check(outside, monkeypatch):
-    """The tensor path over chunks of 4,096 tail entries still catches the
-    one row outside the row space, and skips a dependent tail."""
+    """Over chunks of 4,096 tail entries the check still catches the one
+    row outside the row space, and skips a dependent tail."""
     monkeypatch.setattr(ech, "TAIL_CHUNK", 4096)
     f = field(42013)
     rng = np.random.default_rng(3 + outside)
     head, n_tail = 500, 10_000 + outside
-    (rows, cols, vals), U, piv = _finish_coo(f, rng, head, n_tail, outside)
-    got = ech._randomized_tail_is_dependent(
-        f, rows, cols, vals, head, head + n_tail, U.shape[1],
-        torch.from_numpy(U.astype(np.int32)), torch.from_numpy(piv))
-    assert got is (not outside)
+    coo, U, piv = _finish_coo(f, rng, head, n_tail, outside)
+    assert _check(f, coo, head, head + n_tail, U, piv) is (not outside)
 
 
 def test_subcomplex_keeps_its_rank():
