@@ -1073,10 +1073,10 @@ def run_flag_checks(p: int = 42013) -> dict:
     return out
 
 
-# the finish's uploads and fused_blocked_finish run under the sync
-# debugger inside watched_finish(): "warn" for a first call (its syncs
-# counted), "error" for a capture or a replay; the two reads after it are
-# outside
+# the finish's upload (dense.upload_csr) and fused_blocked_finish run
+# under the sync debugger inside watched_finish(): "warn" for a first call
+# (its syncs counted), "error" for a capture or a replay; the two reads
+# after it are outside
 _WATCH = {"mode": "warn", "calls": 0, "syncs": 0, "sites": []}
 
 
@@ -1105,17 +1105,18 @@ def _guarded(fn, count=False):
 
 @contextlib.contextmanager
 def watched_finish():
-    """dense.upload and dense.fused_blocked_finish under the sync debugger
-    (the latter counted); the graph cache is freed on the way out."""
+    """dense.upload_csr (S's CSR uploaded, its COO formed on the card) and
+    dense.fused_blocked_finish under the sync debugger (the latter
+    counted); the graph cache is freed on the way out."""
     from spasm_tpu_torch.ops import dense
 
-    real_up, real_fb = dense.upload, dense.fused_blocked_finish
-    dense.upload = _guarded(real_up)
+    real_up, real_fb = dense.upload_csr, dense.fused_blocked_finish
+    dense.upload_csr = _guarded(real_up)
     dense.fused_blocked_finish = _guarded(real_fb, count=True)
     try:
         yield
     finally:
-        dense.upload, dense.fused_blocked_finish = real_up, real_fb
+        dense.upload_csr, dense.fused_blocked_finish = real_up, real_fb
         dense.release_finish_graphs()
 
 

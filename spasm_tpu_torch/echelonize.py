@@ -198,16 +198,17 @@ def last_phase_stats() -> dict:
     - finish_s: ``finish``, the finish after the rounds (dense or GPLU),
       with its checkpoint sidecars' removal;
     - finish_prep_s: ``finish.prep``, the finish's alive columns and
-      density gate, and the dense finish's COO build, normalize and sort,
-      up to the first upload;
+      density gate, and the dense finish's choice of loop, up to the first
+      upload;
     - finish_wait_s: ``finish.wait``, the dense finish's block loop: on the
-      fused path the uploads and ``fused_blocked_finish`` up to the return
-      of the first readback; the whole streaming loop otherwise;
+      fused path S's CSR uploaded and its COO formed on the device
+      (``dense_ops.upload_csr``), and ``fused_blocked_finish`` up to the
+      return of the first readback; the whole streaming loop otherwise;
     - finish_tail_s: ``finish.tail``, inside ``finish.wait``: the
       streaming loop's tail checks (``_tail_is_dependent``);
-    - finish_extract_s: ``finish.extract``, the dense finish's pivot lists,
-      U extraction (the fused path's second readback), and the host CSR,
-      column remap and reduction of U;
+    - finish_extract_s: ``finish.extract``, the dense finish's pivot lists
+      and U's canonical CSR, built on the finish's device and read back
+      (``dense_ops.extract_u_csr``; the fused path's second readback);
     - assemble_s: ``assemble``, U, qinv, L and the canonical RREF;
     - device_s: no span; the dense finish's block loop on the device, ended
       by a synchronize (0 for a finish under the cutoff, whose loop runs on
@@ -248,7 +249,13 @@ def last_phase_stats() -> dict:
       group is one panel);
     - rref_groups_run: those whose body ran, counted on the card by a
       replayed graph (one add of a group's predicate, read back with the
-      block's pivots) and otherwise by an eager RREF."""
+      block's pivots) and otherwise by an eager RREF;
+    - finish_copy_bytes: the bytes the dense finish copied between the
+      host and a card (``dense_ops.COPY_BYTES``): every ``upload`` (S's
+      CSR, the column map where a column is dead, a resumed sidecar's
+      panel) and every ``to_host`` (each read of block pivots, the tail
+      checks' values, U's CSR, a sidecar's panel); 0 for a finish on CPU
+      tensors and for a call without a dense finish."""
     return dict(_LAST_STATS)
 
 
@@ -273,7 +280,7 @@ def echelonize(A: SparseGFp, opts: EchelonizeOptions | None = None,
              "assemble_s": 0.0, "device_s": 0.0, "rounds": 0,
              "finish_rows": 0, "finish_streamed": 0, "finish_blocks": 0,
              "finish_rows_skipped": 0, "rref_groups": 0,
-             "rref_groups_run": 0}
+             "rref_groups_run": 0, "finish_copy_bytes": 0}
     runs = dict(pivots.GREEDY_RUNS)
     with phase("echelonize", stats, key="total_s"):
         device = torch.device(device)
@@ -907,16 +914,6 @@ def _dense_finish_blocked(f: Field, S, row_origin, alive_cols, r0, opts,
         stats["finish_rows"] += n_s
         na = alive_cols.size
         bs = min(n_s, max(128, opts.dense_block_size))
-        colmap = np.full(S.shape[1], -1, np.int64)
-        colmap[alive_cols] = np.arange(na)
-        Sc = S.tocoo()
-        rows_all = Sc.row
-        cols_all = colmap[Sc.col]
-        vals_all = f.normalize(Sc.data)
-        if not np.all(rows_all[1:] >= rows_all[:-1]):  # CSR's are sorted
-            order = np.argsort(rows_all, kind="stable")
-            rows_all, cols_all, vals_all = (rows_all[order], cols_all[order],
-                                            vals_all[order])
 
         # a sidecar of another matrix, round or tail is ignored, not resumed
         ckpt_meta = dict(field_p=f.p, r0=r0, s_nnz=int(S.nnz), n_s=n_s, na=na)
@@ -941,16 +938,19 @@ def _dense_finish_blocked(f: Field, S, row_origin, alive_cols, r0, opts,
         log(f"[echelonize/dense] processing {n_s} x {na} in blocks of {bs} "
             f"({'device' if device_sized else 'host'})")
     t_dev = time.perf_counter()
+    copied = dense_ops.COPY_BYTES["card"]
     if fused:
-        result = _fused_device_finish(f, n_s, na, na_b, bs_b, rows_all,
-                                      cols_all, vals_all, device, stats=stats)
+        result = _fused_device_finish(f, S, alive_cols, na_b, bs_b, device,
+                                      stats=stats)
     else:
         with contextlib.nullcontext() if device_sized else _one_thread():
             result = _streaming_loop(
-                f, n_s, na, bs, rows_all, cols_all, vals_all, opts,
+                f, S, alive_cols, bs, opts,
                 device if device_sized else torch.device("cpu"), low_rank,
                 stats=stats, ckpt_path=ckpt_path, resume_state=dense_resume,
                 ckpt_meta=ckpt_meta)
+    stats["finish_copy_bytes"] = (stats.get("finish_copy_bytes", 0)
+                                  + dense_ops.COPY_BYTES["card"] - copied)
     if device_sized:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -958,12 +958,11 @@ def _dense_finish_blocked(f: Field, S, row_origin, alive_cols, r0, opts,
     if result is None:
         return None
     with phase("finish.extract", stats):
-        Usp_local, piv_cols_loc, piv_rows_glob = result
+        (indptr, indices, data), piv_cols_loc, piv_rows_glob = result
         r_d = piv_cols_loc.size
         log(f"[echelonize/dense] done, {r_d} pivots")
-        Usp = sp.csr_matrix(Usp_local)
-        Usp = sp.csr_matrix((Usp.data, alive_cols[Usp.indices], Usp.indptr),
-                            shape=(r_d, S.shape[1]))
+        # canonical as built on the device: mod_reduce would change nothing
+        Usp = sp.csr_matrix((data, indices, indptr), shape=(r_d, S.shape[1]))
         pcols = alive_cols[piv_cols_loc]
         porig = row_origin[piv_rows_glob]
         if opts.L:
@@ -971,7 +970,7 @@ def _dense_finish_blocked(f: Field, S, row_origin, alive_cols, r0, opts,
             # it with coefficients = its values at the pivot columns
             Csub = sp.csc_matrix(S)[:, pcols].tocoo()
             L_parts.append((row_origin[Csub.row], r0 + Csub.col, Csub.data))
-        return mod_reduce(Usp, f), pcols.astype(np.int64), porig
+        return Usp, pcols.astype(np.int64), porig
 
 
 @contextlib.contextmanager
@@ -1018,12 +1017,13 @@ def _low_rank_mode(opts, rank_so_far, rows_processed, n_s):
     return rank_so_far < opts.low_rank_ratio * max(1, rows_processed)
 
 
-def _streaming_loop(f, n_s, na, bs, rows_all, cols_all, vals_all, opts,
-                    device: torch.device, low_rank_possible: bool,
-                    ckpt_path=None, resume_state=None, ckpt_meta=None,
-                    stats=None):
-    """The dense finish's streaming block loop on ``device`` (a card, or
-    the CPU for a finish under the cutoff): the COO uploaded once, then one
+def _streaming_loop(f, S, alive_cols, bs, opts, device: torch.device,
+                    low_rank_possible: bool, ckpt_path=None,
+                    resume_state=None, ckpt_meta=None, stats=None):
+    """The dense finish's streaming block loop over S (scipy CSR) on its
+    columns ``alive_cols``, on ``device`` (a card, or the CPU for a finish
+    under the cutoff): S's CSR uploaded once and its COO formed there
+    (``dense_ops.upload_csr``), then one
     ``dense_ops.blocked_finish_step`` per row block of ``bs`` rows against
     the accumulated mutual RREF ``Ud`` (``dense_ops.stream_buffers``: the
     rank bound min(n_s, na) plus a block of rows), updated in place; on a
@@ -1035,20 +1035,21 @@ def _streaming_loop(f, n_s, na, bs, rows_all, cols_all, vals_all, opts,
     ``Ud[:r_d]`` to the host; a resume puts it back.  ``stats`` takes the
     spans ``finish.wait`` (the loop), its child ``finish.tail`` (the tail
     checks) and ``finish.extract``, and the counts ``finish_blocks``,
-    ``finish_rows_skipped``, ``rref_groups`` and ``rref_groups_run``."""
+    ``finish_rows_skipped``, ``rref_groups`` and ``rref_groups_run``.
+    Returns None where no pivot was found, else ((indptr, indices, data)
+    of U's block, ``dense_ops.extract_u_csr`` over S's columns, its pivot
+    columns among ``alive_cols``' positions, its pivot rows of S)."""
     stats = {} if stats is None else stats
+    n_s, na = S.shape[0], alive_cols.size
     for k in ("finish_blocks", "finish_rows_skipped", "rref_groups",
               "rref_groups_run"):
         stats.setdefault(k, 0)
     groups = dense_ops.rref_groups(na, dense_ops.DEFAULT_PANEL, device)
     with phase("finish.wait", stats):
-        # the COO goes up once; each block and tail check takes a slice
-        coo = [dense_ops.upload(x, dt, device) for x, dt in (
-            (rows_all, np.int64), (cols_all, np.int64), (vals_all, np.int32))]
-        # each row's first entry: searched once, with keys of the COO's own
-        # dtype (other keys make NumPy cast the whole array every search)
-        starts = np.searchsorted(rows_all,
-                                 np.arange(n_s + 1, dtype=rows_all.dtype))
+        # the COO is formed once; each block and tail check takes a slice,
+        # from each row's first entry, S.indptr
+        *coo, alive = dense_ops.upload_csr(f, S, alive_cols, device)
+        starts = S.indptr
         # bs rows beyond the rank bound min(n_s, na), for the card's steps
         Ud, pc_map = dense_ops.stream_buffers(min(n_s, na) + bs, na, device)
         r_d = 0
@@ -1063,10 +1064,10 @@ def _streaming_loop(f, n_s, na, bs, rows_all, cols_all, vals_all, opts,
             b0 = resume_state["b0"]
             r_d = len(piv_cols_loc)
             if r_d:
-                Ud[:r_d] = torch.from_numpy(
-                    resume_state["Uh"].astype(np.int32)).to(device)
-                pc_map[:r_d] = torch.tensor(piv_cols_loc, dtype=torch.int64,
-                                            device=device)
+                Ud[:r_d] = dense_ops.upload(resume_state["Uh"], np.int32,
+                                            device)
+                pc_map[:r_d] = dense_ops.upload(piv_cols_loc, np.int64,
+                                                device)
         last_save = wtime()
         while b0 < n_s and r_d < na:
             b1 = min(n_s, b0 + bs)
@@ -1089,7 +1090,8 @@ def _streaming_loop(f, n_s, na, bs, rows_all, cols_all, vals_all, opts,
             if (ckpt_path and b0 < n_s
                     and wtime() - last_save >= DENSE_CKPT_INTERVAL_S):
                 _save_dense_ckpt(ckpt_path, ckpt_meta, b0,
-                                 Ud[:r_d].cpu().numpy().astype(np.int64),
+                                 dense_ops.to_host(Ud[:r_d]).numpy()
+                                 .astype(np.int64),
                                  piv_cols_loc, piv_rows_glob, dry_blocks)
                 last_save = wtime()
             if (low_rank_possible and dry_blocks >= 1 and piv_cols_loc
@@ -1103,39 +1105,43 @@ def _streaming_loop(f, n_s, na, bs, rows_all, cols_all, vals_all, opts,
                         f"{n_s - b0} rows dependent; skipping")
                     stats["finish_rows_skipped"] += n_s - b0
                     break
+    del coo
     if r_d == 0:
         return None
     with phase("finish.extract", stats):
-        Usp = dense_ops.extract_u_csr(Ud, pc_map, r_d, na, piv_cols_loc)
-        return (Usp, np.array(piv_cols_loc, np.int64),
+        U = dense_ops.extract_u_csr(Ud, pc_map, r_d, na, alive)
+        return (U, np.array(piv_cols_loc, np.int64),
                 np.array(piv_rows_glob, np.int64))
 
 
-def _fused_device_finish(f, n_s, na, na_b, bs, rows_all, cols_all,
-                         vals_all, device, stats=None):
-    """The reference's single-dispatch dense finish: the whole block loop
-    in ``dense_ops.fused_blocked_finish`` (one CUDA graph on a card), then
+def _fused_device_finish(f, S, alive_cols, na_b, bs, device, stats=None):
+    """The reference's single-dispatch dense finish of S (scipy CSR) on its
+    columns ``alive_cols``: S's CSR uploaded and its COO formed on
+    ``device`` (``dense_ops.upload_csr``), the whole block loop in
+    ``dense_ops.fused_blocked_finish`` (one CUDA graph on a card), then
     exactly two reads: every block's rank and pivots (with the count of
-    panel groups run) in one copy, and the sparse extraction of the
-    accumulated U.  ``stats`` takes the spans ``finish.wait`` (the uploads
+    panel groups run) in one copy, and U's canonical CSR
+    (``dense_ops.extract_u_csr``).  Returns what ``_streaming_loop``
+    returns.  ``stats`` takes the spans ``finish.wait`` (the uploads
     to the first read's return) and ``finish.extract`` (the rest), and the
     counts ``rref_groups`` and ``rref_groups_run``.  It writes no sidecar,
     as the reference's: a resume from a checkpoint it left finds none and
     runs it again."""
     stats = {} if stats is None else stats
+    n_s, na = S.shape[0], alive_cols.size
     n_pad = -(-n_s // bs) * bs
     nb = n_pad // bs
     with phase("finish.wait", stats):
-        rows, cols, vals = (dense_ops.upload(x, dt, device) for x, dt in (
-            (rows_all, np.int64), (cols_all, np.int64),
-            (vals_all, np.int32)))
+        rows, cols, vals, alive = dense_ops.upload_csr(f, S, alive_cols,
+                                                       device)
         Ud, pc_map, _, ranks, prows, pcols, ran = (
             dense_ops.fused_blocked_finish(
                 f, (n_pad, na_b), na, bs, dense_ops.DEFAULT_PANEL, rows,
                 cols, vals))
+        del rows, cols, vals
         meta = torch.cat([ranks, prows.reshape(-1), pcols.reshape(-1),
                           ran.view(1)])
-        meta = meta.cpu().numpy()
+        meta = dense_ops.to_host(meta).numpy()
     stats["rref_groups"] = stats.get("rref_groups", 0) + nb * (
         dense_ops.rref_groups(na, dense_ops.DEFAULT_PANEL, device))
     stats["rref_groups_run"] = (stats.get("rref_groups_run", 0)
@@ -1153,8 +1159,8 @@ def _fused_device_finish(f, n_s, na, na_b, bs, rows_all, cols_all,
         r_d = len(piv_cols_loc)
         if r_d == 0:
             return None
-        Usp = dense_ops.extract_u_csr(Ud, pc_map, r_d, na, piv_cols_loc)
-        return (Usp, np.array(piv_cols_loc, np.int64),
+        U = dense_ops.extract_u_csr(Ud, pc_map, r_d, na, alive)
+        return (U, np.array(piv_cols_loc, np.int64),
                 np.array(piv_rows_glob, np.int64))
 
 
@@ -1173,10 +1179,10 @@ TAIL_CHUNK = 1 << 22
 def _combine_rows_on(f: Field, C: torch.Tensor, rows, cols, vals,
                      na: int) -> torch.Tensor:
     """C @ T mod p on C's device, balanced int32, for C (s, k) balanced
-    int64 and T (k, na) as COO (rows, cols int64, vals balanced int32).
-    One gather, product and scatter-add per TAIL_CHUNK entries, exact in
-    int64: each term is at most (p/2)**2 < 2**62 and is reduced mod p
-    before it is summed, and the sums after each chunk."""
+    int64 and T (k, na) as COO (rows int64, cols int32 or int64, vals
+    balanced int32).  One gather, product and scatter-add per TAIL_CHUNK
+    entries, exact in int64: each term is at most (p/2)**2 < 2**62 and is
+    reduced mod p before it is summed, and the sums after each chunk."""
     X = torch.zeros((C.shape[0], na), dtype=torch.int64, device=C.device)
     for i in range(0, rows.numel(), TAIL_CHUNK):
         j = i + TAIL_CHUNK
@@ -1189,7 +1195,7 @@ def _combine_rows_on(f: Field, C: torch.Tensor, rows, cols, vals,
 def _tail_is_dependent(f, rows, cols, vals, b0, n_s, na, U, piv_cols):
     """Whether the finish's unprocessed rows b0..n_s-1 lie in the row space
     of the dense mutual RREF ``U`` with pivot columns ``piv_cols``: rows,
-    cols, vals the COO of those rows (int64, int64, balanced int32 tensors
+    cols, vals the COO of those rows (int64, int32, balanced int32 tensors
     on U's device), U and piv_cols tensors.  Each of ``_tail_samples(p)``
     samples combines every tail row with its own uniform coefficient,
     drawn on U's device from a fixed seed, all in one sparse product
@@ -1209,7 +1215,7 @@ def _tail_is_dependent(f, rows, cols, vals, b0, n_s, na, U, piv_cols):
     C = torch.where(C > p // 2, C - p, C)
     X = _combine_rows_on(f, C, rows - b0, cols, vals, na)
     res = modmul.sub(f, X, modmatmul(f, X[:, piv_cols], U))
-    return not bool(res.any())
+    return not bool(dense_ops.to_host(res.any()))
 
 
 def _gplu_finish(f: Field, S, row_origin, r0, opts, L_parts):

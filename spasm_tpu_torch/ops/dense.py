@@ -37,7 +37,6 @@ import collections
 import time
 
 import numpy as np
-import scipy.sparse as sp
 import torch
 
 from . import _cuda, modmul
@@ -490,39 +489,91 @@ def densify_coo(shape, rows, cols, vals, device):
     return out
 
 
-def extract_sparse(X: torch.Tensor):
-    """(rows, cols, vals) numpy triples of the nonzeros of X, in one copy
-    to the host (after the count ``torch.nonzero`` reads)."""
-    rc = torch.nonzero(X)
-    out = torch.cat([rc, X[rc[:, 0], rc[:, 1]].long()[:, None]], dim=1)
-    r, c, v = out.cpu().numpy().T
-    return r.copy(), c.copy(), v.copy()
-
-
 def count_nonzero_device(X: torch.Tensor) -> int:
     return int(torch.count_nonzero(X))
 
 
+def upload_csr(f, S, alive_cols, device):
+    """The dense finish's input on ``device``, for S (scipy CSR, n_s rows)
+    whose live columns are ``alive_cols`` (increasing, numpy): S goes up as
+    its CSR (``upload``: indptr int64, indices int32, data int32 where it
+    is, else int64), and its COO is formed there with no host read: each
+    entry's row from indptr (``repeat_interleave`` with the count the host
+    knows), its column through the map from S's columns to the finish's
+    (``alive_cols`` goes up, 4 B a column, only where a column of S is not
+    alive: else the map is the identity), its value balanced
+    (``modmul.normalize``).  Entries keep S's order, so the COO densifies
+    to the same X as S's ``tocoo()`` with its columns mapped and its values
+    normalized on the host.
+
+    Returns (rows int64, cols int32, vals int32, alive): alive the uploaded
+    ``alive_cols`` (int32) or None for the identity, U's column map in
+    ``extract_u_csr``."""
+    indptr = upload(S.indptr, np.int64, device)
+    cols = upload(S.indices, np.int32, device)
+    vals = upload(S.data, np.int32 if S.data.dtype == np.int32 else np.int64,
+                  device)
+    rows = torch.repeat_interleave(indptr[1:] - indptr[:-1],
+                                   output_size=int(S.indptr[-1]))
+    alive = None
+    if alive_cols.size < S.shape[1]:
+        alive = upload(alive_cols, np.int32, device)
+        colmap = torch.full((S.shape[1],), -1, dtype=torch.int32,
+                            device=device)
+        colmap.index_copy_(0, alive.long(), torch.arange(
+            alive.numel(), dtype=torch.int32, device=device))
+        cols = colmap.index_select(0, cols)
+    return rows, cols, modmul.normalize(f, vals), alive
+
+
 def extract_u_csr(Ud: torch.Tensor, pc_map: torch.Tensor, r_d: int, na: int,
-                  piv_cols_loc):
-    """Read the accumulated mutual-RREF panel back as scipy CSR (r_d, na):
-    the unit pivot entries are synthesized on the host from
-    ``piv_cols_loc`` (slot order == Ud row order, == ``pc_map[:r_d]``);
-    only the non-pivot columns are scanned and transferred.  In full mutual
-    RREF every pivot column is a unit vector the host already knows, so
-    the non-pivot columns, known on the host too, carry all the rest."""
-    eye_r = np.arange(r_d, dtype=np.int64)
-    eye_c = np.asarray(piv_cols_loc, np.int64)
-    if r_d >= na:  # no non-pivot columns: U is exactly the identity part
-        return sp.csr_matrix((np.ones(r_d, np.int64), (eye_r, eye_c)),
-                             shape=(r_d, na))
-    np_idx = np.setdiff1d(np.arange(na, dtype=np.int64), eye_c)
-    compact = Ud[:r_d].index_select(1, torch.from_numpy(np_idx).to(Ud.device))
-    er, ec, ev = extract_sparse(compact)
-    rows = np.concatenate([eye_r, er])
-    cols = np.concatenate([eye_c, np_idx[ec]])
-    vals = np.concatenate([np.ones(r_d, np.int64), ev])
-    return sp.csr_matrix((vals, (rows, cols)), shape=(r_d, na))
+                  alive: torch.Tensor = None):
+    """The finish's block of U as its canonical CSR, built on Ud's device
+    and read back in one copy: Ud[:r_d] is the accumulated panel in full
+    mutual RREF over the finish's na columns, its rows in pivot-slot order
+    with pivot columns ``pc_map[:r_d]``, so each pivot column is a unit
+    vector and only the other (free) columns are scanned.  ``alive`` maps
+    the finish's columns to U's (increasing; None: the identity).
+
+    The free columns are compacted to (r_d, na - r_d); their nonzeros come
+    in row-major order from ``torch.nonzero`` (the one read of a count),
+    already sorted within each row since the columns and the map increase;
+    each row's unit entry goes in after the nonzeros left of its pivot
+    column, found by a ``searchsorted`` of the flat keys row * nf + col,
+    as are the rows' starts.  Returns numpy (indptr int64 (r_d + 1,), indices
+    int32, data int32): balanced values, no zeros, sorted indices, rows in
+    pivot-slot order, as ``sputil.mod_reduce`` gives of U's host CSR."""
+    dev = Ud.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    nf = na - r_d
+    pc = pc_map[:r_d]
+    free = torch.ones(na, dtype=torch.bool, device=dev)
+    free[pc] = False
+    upto = torch.cumsum(free, 0)     # free columns up to each column
+    slot = torch.where(free, upto - 1, nf)
+    free_cols = torch.empty(nf + 1, **i64).scatter_(
+        0, slot, torch.arange(na, **i64))[:nf]
+    C = Ud[:r_d].index_select(1, free_cols)
+    keys = torch.nonzero(C.view(-1)).view(-1)
+    row = torch.div(keys, max(nf, 1), rounding_mode="floor")
+    col = keys - row * nf
+    left = upto[pc]                  # free columns left of each pivot
+    ar = torch.arange(r_d + 1, **i64)
+    indptr = torch.searchsorted(keys, ar * nf) + ar
+    unit = torch.searchsorted(keys, ar[:-1] * nf + left) + ar[:-1]
+    at = torch.arange(keys.numel(), **i64) + row + (col >= left[row])
+    gcol = torch.arange(na, **i64) if alive is None else alive.long()
+    nnz = keys.numel() + r_d
+    head = 2 * (r_d + 1)
+    out = torch.empty(head + 2 * nnz, dtype=torch.int32, device=dev)
+    out[:head].view(torch.int64).copy_(indptr)
+    ind, dat = out[head:head + nnz], out[head + nnz:]
+    ind.index_copy_(0, at, gcol[free_cols][col].int())
+    ind.index_copy_(0, unit, gcol[pc].int())
+    dat.index_copy_(0, at, C.view(-1)[keys])
+    dat.index_fill_(0, unit, 1)
+    buf = to_host(out).numpy()
+    return buf[:head].view(np.int64), buf[head:head + nnz], buf[head + nnz:]
 
 
 # elements of the accumulated panel back-eliminated per K1 call (2**27:
@@ -639,7 +690,7 @@ def _read_step(meta, r_d: int, n: int):
     """The host's one read of a step of ``n`` block rows, its meta of
     ``_step_meta``: (r_d', new_rank, prow_of, pcol_of, groups_run), the
     pivot lists as CPU tensors."""
-    meta = meta.cpu()
+    meta = to_host(meta)
     new_rank = int(meta[0])
     return r_d + new_rank, new_rank, meta[2:2 + n], meta[2 + n:], int(meta[1])
 
@@ -662,20 +713,34 @@ def _bucket(x: int) -> int:
     return -(-x // 1024) * 1024
 
 
+# bytes that ``upload`` and ``to_host`` copied between the host and a
+# card (none for CPU tensors): ``echelonize`` reports a finish's share as
+# ``finish_copy_bytes``
+COPY_BYTES = {"card": 0}
+
+
 def upload(a, dtype, device) -> torch.Tensor:
     """A host array on ``device``; to a card from pinned memory with no
-    synchronization."""
+    synchronization, its bytes added to ``COPY_BYTES``."""
     t = torch.from_numpy(np.ascontiguousarray(a, dtype=dtype))
     if torch.device(device).type != "cuda":
         return t.to(device)
+    COPY_BYTES["card"] += t.nbytes
     return t.pin_memory().to(device, non_blocking=True)
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """t on the CPU; from a card its bytes are added to ``COPY_BYTES``."""
+    if t.is_cuda:
+        COPY_BYTES["card"] += t.nbytes
+    return t.cpu()
 
 
 def _densify_into(X: torch.Tensor, rows, cols, vals) -> None:
     """X = 0, then the COO entries (tensors on X's device) added in."""
     X.zero_()
-    X.view(-1).index_add_(0, rows.long() * X.shape[1] + cols.long(),
-                          vals.to(torch.int32))
+    at = rows.to(torch.int64, copy=True).mul_(X.shape[1]).add_(cols)
+    X.view(-1).index_add_(0, at, vals.to(torch.int32))
 
 
 def _block_body(f, Xb: torch.Tensor, Ud: torch.Tensor, pc_map: torch.Tensor,

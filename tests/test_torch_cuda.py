@@ -7,6 +7,8 @@ so there these tests run without it:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -685,6 +687,78 @@ def test_fused_finish_makes_no_host_sync(card, monkeypatch):
             # the last value, the count of group bodies run, is the card's
             for g, w in zip(out[:6], want):
                 assert torch.equal(g.cpu(), w)
+    finally:
+        dense.release_finish_graphs()
+
+
+def _sync_mode(mode, fn, record=None):
+    # fn under the sync debugger's mode, the caller's mode restored after;
+    # record takes the bytes of what fn returns
+    def run(*a, **k):
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(mode)
+        try:
+            out = fn(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        if record is not None:
+            record.append(sum(x.nbytes for x in out))
+        return out
+    return run
+
+
+@pytest.mark.parametrize("loop", ["fused", "streaming"])
+def test_finish_stages_csr_with_no_host_sync(loop, card, monkeypatch):
+    # S goes up as its CSR and its COO is formed on the card: from the
+    # upload to the replay nothing reads the card, whether the loop is one
+    # graph (fused) or a graph a step (streaming).  The loop runs under the
+    # sync debugger, which only the reads (to_host: the block pivots, U)
+    # and U's construction (its count of nonzeros) leave.  U equals the
+    # CPU's, and finish_copy_bytes is the CSR's bytes plus the reads
+    ech = importlib.import_module("spasm_tpu_torch.echelonize")
+    monkeypatch.setattr(dense, "HOST_CUTOFF", 1)
+    if loop == "streaming":
+        monkeypatch.setattr(dense, "FUSED_BUDGET", 0)
+    A = SparseGFp.rand(field(42013), 900, 700, 0.05,
+                       np.random.default_rng(21))
+    S = A.to_scipy()
+    assert np.unique(S.indices).size == 700      # no column map goes up
+    csr_bytes = S.indptr.size * 8 + S.nnz * (4 + (
+        4 if S.data.dtype == np.int32 else 8))
+    kw = dict(dense_block_size=256, device_sparsity_threshold=None,
+              max_round=0)
+    cpu = lu_arrays(echelonize(A, device="cpu", **kw))
+    u_reads = []
+    dense.release_finish_graphs()
+    try:
+        for call in range(3):
+            with monkeypatch.context() as mp:
+                if call:   # the first call's eager RREFs read the card
+                    name = ("_fused_device_finish" if loop == "fused"
+                            else "_streaming_loop")
+                    mp.setattr(ech, name,
+                               _sync_mode("error", getattr(ech, name)))
+                    mp.setattr(dense, "to_host",
+                               _sync_mode(0, dense.to_host))
+                    mp.setattr(dense, "extract_u_csr", _sync_mode(
+                        0, dense.extract_u_csr, u_reads))
+                got = lu_arrays(echelonize(A, device=card, **kw))
+            st = last_phase_stats()
+            for k in cpu:
+                assert np.array_equal(got[k], cpu[k]), (call, k)
+            if not call:
+                continue
+            if loop == "fused":
+                assert dense.last_finish["graph"] == ("captured", "replayed")[
+                    call - 1]
+                nb = -(-900 // 256)
+                meta = (nb + 2 * nb * 256 + 1) * 8
+            else:
+                assert st["finish_streamed"] == 1
+                assert st["finish_rows_skipped"] == 0
+                meta = sum((2 + 2 * min(256, 900 - b * 256)) * 8
+                           for b in range(st["finish_blocks"]))
+            assert st["finish_copy_bytes"] == csr_bytes + meta + u_reads[-1]
     finally:
         dense.release_finish_graphs()
 

@@ -2,7 +2,8 @@
 .fused_blocked_finish) and its device-resident rref_inplace against the JAX
 package's on the CPU, exactly (GF(p): tolerance 0): the same seeded numpy
 inputs give the same r_d, per-block ranks, pivot rows and columns, and the
-same U from extract_u_csr.  Also: which block loop echelonize takes (the
+same U from extract_u_csr (the port's canonical CSR against the
+reference's through ``mod_reduce``).  Also: which block loop echelonize takes (the
 reference's condition, with or without checkpoint=), the kernels' run
 flags in their plain versions, and the mesh helpers, which no longer fall
 back to the CPU.
@@ -26,6 +27,7 @@ import spasm_tpu as st
 from spasm_tpu import SparseGFp
 from spasm_tpu.field import field
 from spasm_tpu.ops import dense as ref_dense
+from spasm_tpu.sputil import mod_reduce
 
 import spasm_tpu_torch as stt
 from spasm_tpu_torch import interop
@@ -101,10 +103,11 @@ def check_fused(p, case, group, monkeypatch, bs=32, panel=16, m=100):
     cols, _ = _pivots(*want[3:], bs)
     assert len(cols) == r_d
     if r_d:
-        U = dense.extract_u_csr(got[0], got[1], r_d, na, cols)
-        U_ref = ref_dense.extract_u_csr(jnp.asarray(want[0]),
-                                        jnp.asarray(want[1]), r_d, na, cols)
-        assert (U != U_ref).nnz == 0 and U.nnz == U_ref.nnz
+        U = dense.extract_u_csr(got[0], got[1], r_d, na)
+        U_ref = mod_reduce(ref_dense.extract_u_csr(
+            jnp.asarray(want[0]), jnp.asarray(want[1]), r_d, na, cols), f)
+        for g, w in zip(U, (U_ref.indptr, U_ref.indices, U_ref.data)):
+            np.testing.assert_array_equal(g, w)
     return r_d, got[3].numpy()
 
 
@@ -402,11 +405,12 @@ def test_fused_finish_returns_none_without_pivots(monkeypatch):
     rows = np.arange(200) % 100
     cols = np.arange(200) % 50
     vals = np.ones(200, np.int64)
-    r, c, v = port_ech._fused_device_finish(
-        F, 100, 50, 128, 128, rows, cols, vals, torch.device("cpu"))
-    assert r.shape == (50, 50) and len(c) == 50
+    S = sp.csr_matrix((vals, (rows, cols)), shape=(100, 50))
+    U, c, v = port_ech._fused_device_finish(
+        F, S, np.arange(50), 128, 128, torch.device("cpu"))
+    assert U[0].shape == (51,) and len(c) == 50
     got = port_ech._fused_device_finish(
-        F, 100, 50, 128, 128, rows, cols, vals * 0, torch.device("cpu"))
+        F, S * 0, np.arange(50), 128, 128, torch.device("cpu"))
     assert got is None and calls["port"] == 2
 
 

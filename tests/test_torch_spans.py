@@ -33,7 +33,7 @@ CHILDREN = ("finish_prep_s", "finish_wait_s", "finish_extract_s")
 # groups its RREFs reached and ran
 COUNTS = ("greedy_native", "greedy_numpy", "rounds", "finish_rows",
           "finish_streamed", "finish_blocks", "finish_rows_skipped",
-          "rref_groups", "rref_groups_run")
+          "rref_groups", "rref_groups_run", "finish_copy_bytes")
 # span name -> the key it feeds
 SPAN_KEY = {"echelonize": "total_s", "convert": "convert_s",
             "pivots": "pivot_s", "estimate": "estimate_s",
@@ -96,6 +96,7 @@ def test_spans_cover_the_call(path, monkeypatch):
         assert st[k] > 0, k
     assert (st["schur_s"] > 0) == (path in ("rounds", "boundary"))
     assert (st["device_s"] > 0) == (path != "host")
+    assert st["finish_copy_bytes"] == 0      # nothing goes to a card
     kids = sum(st[k] for k in CHILDREN)
     assert 0.98 * st["finish_s"] <= kids <= st["finish_s"]
     top = sum(st[k] for k in TOP)
